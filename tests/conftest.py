@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
