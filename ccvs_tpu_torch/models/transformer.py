@@ -90,9 +90,11 @@ class TokenTransformer(nn.Module):
         # logits at position start - 1 predict token `start`; placeholders
         # beyond it are causally invisible and overwritten step by step
         logits = logits_all[:, start - 1]
+        pos = torch.full((1,), start, dtype=torch.int32, device=dev)  # the step's position, j
         for j in range(start, length):
             tok = _sample_token(self.cfg, generator, logits)
             merged[:, j] = tok
             emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]))[:, None]
-            logits = decode_step_fn(model, emb1, j, cache)
+            logits = decode_step_fn(model, emb1, pos, cache)
+            pos += 1
         return merged

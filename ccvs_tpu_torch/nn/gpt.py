@@ -11,7 +11,10 @@ stay fp32 as the JAX package's one-time bf16 cast leaves them.
 The KV cache is ``(k, v)`` of ``(n_layer, B, nh, L, hd)`` tensors, written in
 place (the JAX package returns updated copies). The single-token attention
 of the cached decode step is kernel K2
-(:func:`ccvs_tpu_torch.ops.attention.flash_decode_attention`).
+(:func:`ccvs_tpu_torch.ops.attention.flash_decode_attention`). The decode
+step takes its position as an int32 tensor of shape ``(1,)`` on the device, as
+the JAX package's takes a traced scalar: the cache write and K2 read it there,
+so the host never names the position to the device.
 """
 
 import math
@@ -83,7 +86,9 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x, cache=None, index=0):
         """x ``(B, t, C)``. With ``cache`` ``(ck, cv)`` of ``(B, nh, L, hd)``,
         the new keys and values are written at ``index`` (in place) and the
-        queries attend to cache positions ``<= index + their offset``."""
+        queries attend to cache positions ``<= index + their offset``.
+        ``index`` is an int, or for one token (``t == 1``) an int32 tensor of
+        shape ``(1,)`` on the cache's device."""
         b, t, c = x.shape
         nh, hd, dt = self.n_head, c // self.n_head, self.dtype
         q = _dense(self.query, x).reshape(b, t, nh, hd)
@@ -92,8 +97,9 @@ class CausalSelfAttention(nn.Module):
         scale = 1.0 / math.sqrt(hd)
         if cache is not None:
             ck, cv = cache
-            ck[:, :, index:index + t] = k.transpose(1, 2).to(ck.dtype)
-            cv[:, :, index:index + t] = v.transpose(1, 2).to(cv.dtype)
+            at = index if torch.is_tensor(index) else slice(index, index + t)
+            ck[:, :, at] = k.transpose(1, 2).to(ck.dtype)
+            cv[:, :, at] = v.transpose(1, 2).to(cv.dtype)
             if t == 1:
                 y = flash_decode_attention(q[:, 0], ck, cv, index)[:, None]
             else:
@@ -149,8 +155,10 @@ def cache_to_layers(cache):
 
 def decode_step_fn(model, emb1, pos, cache):
     """One cached decode step: ``emb1`` ``(B, 1, D)`` at absolute position
-    ``pos`` -> logits ``(B, V)``. The final LayerNorm runs in fp32 (its
-    parameters are fp32 in a bf16 model too), the head in the model's dtype."""
+    ``pos`` -> logits ``(B, V)``. ``pos`` is an int32 tensor of shape ``(1,)``
+    on the device (the serving loop's), or an int; every layer's cache write
+    and K2 read it. The final LayerNorm runs in fp32 (its parameters are fp32
+    in a bf16 model too), the head in the model's dtype."""
     x = emb1
     for layer, block in enumerate(model.core.blocks):
         x = block(x, (cache[0][layer], cache[1][layer]), pos)

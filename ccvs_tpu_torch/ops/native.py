@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels (``ccvs_tpu_torch/csrc``).
 
-All ``.cu`` sources are compiled by one ``nvcc`` call for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``. No
-source includes PyTorch's headers, so the build takes seconds rather than
-minutes. The library is built at first use into ``ccvs_tpu_torch/_build/``
-(git-ignored), never while a module is imported, and rebuilt when a source is
-newer than it.
+Each ``.cu`` source is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``. No source includes
+PyTorch's headers, so the build takes seconds rather than minutes. The
+library is built at first use into ``ccvs_tpu_torch/_build/`` (git-ignored),
+never while a module is imported, and rebuilt when a source is newer than it.
 """
 
 import ctypes
@@ -18,8 +18,8 @@ import tempfile
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libccvs_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (all return an int but ccvs_error_string)
@@ -27,9 +27,8 @@ SIGNATURES = {
     # z, cb, part_val, part_idx, idx, n, k, d, splits, stream
     "ccvs_vq_argmin": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _p),
     "ccvs_vq_splits": (_i, _i),
-    # q, k, v, part, out, bh, len, hd, pos, scale, dtype, stream
-    "ccvs_flash_decode": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _p),
-    "ccvs_flash_decode_chunk": (),
+    # q, k, v, pos_dev, pos_host, out, bh, len, hd, scale, dtype, stream
+    "ccvs_flash_decode": (_p, _p, _p, _p, _i, _p, _i, _i, _i, _f, _i, _p),
     "ccvs_flash_decode_head_dim": (),
     "ccvs_error_string": (_i,),
 }
@@ -51,24 +50,33 @@ def _nvcc():
 
 
 def build(force=False):
-    """Compile every ``csrc/*.cu`` into :data:`LIB_PATH` with one ``nvcc``
-    call. Returns the compiler's output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel), or ``""`` when the library is up to date."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` process each, in parallel)
+    and link them into :data:`LIB_PATH`. Returns the compilers' output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel), or
+    ``""`` when the library is up to date."""
     srcs = _sources()
     if (not force and os.path.exists(LIB_PATH)
             and os.path.getmtime(LIB_PATH) >= max(os.path.getmtime(s) for s in srcs)):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a reader never sees a half-written library
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        tmp = os.path.join(tmp_dir, "lib.so")
+        link_cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        link = subprocess.run(link_cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{' '.join(link_cmd)}\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, LIB_PATH)  # atomic: a reader never sees a half-written library
+    return "".join(outs) + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,17 +6,22 @@
 Phases, each printing its wall time:
 
 0. device: the card's name and power limit, torch and CUDA versions;
-1. build: both CUDA kernels (``ccvs_tpu_torch/csrc``) in one ``nvcc`` call,
-   with the registers, shared memory and spills of each kernel;
+1. build: both CUDA kernels (``ccvs_tpu_torch/csrc``), one ``nvcc`` process
+   per source, started together, with the registers, shared memory and spills
+   of each kernel;
 2. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes, then timed (CUDA events, L2 flushed, median) beside its plain
-   version, a PyTorch library call that the port never makes, and its bound;
+   path's shapes (K2 with its position an int32 on the device, at positions
+   0, 63, 64, 511 and 1023, and once captured in a CUDA graph and replayed at
+   positions 0, 63, 511 and 1023), then timed (CUDA events, L2 flushed,
+   median; K2 at positions 63, 511 and 1023) beside its plain version, a
+   PyTorch library call that the port never makes, and its bound;
 3. rollout: ``VideoGenerator.generate`` on the full-width BAIR-256 config in
    bf16 from a seeded init, batch 2, 16 frames, 1 context frame: one warm-up
    (its stages timed one by one) and one timed run, with every kernel's
    launch count read around the timed run;
 4. profile: the device's busy share and largest kernels per stage, on parts
-   of the rollout (``torch.profiler``);
+   of the rollout (``torch.profiler``), with the token stage early and late
+   in the window;
 5. reference: a small fp32 configuration generated greedily on the GPU and on
    the CPU (where the kernels' plain versions run) must agree.
 
@@ -61,13 +66,16 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=25, warmup=3):
+def time_ms(fn, iters=25, warmup=3, flush_l2=True):
     """Median device time of ``fn`` in ms, with the 50 MB L2 cache flushed
-    before each timed launch (callers on the serving path find it cold).
+    before each timed launch (callers on the serving path find it cold)
+    unless ``flush_l2`` is False.
 
-    The flush writes 1 GiB (~0.3 ms of device work), so the host has queued
-    the start event, ``fn``'s launches and the end event before the device
-    reaches them: the events time the device's work, not the host's enqueue."""
+    A 1 GiB write (~0.3 ms of device work) precedes each timed launch either
+    way, so the host has queued the start event, ``fn``'s launches and the
+    end event before the device reaches them: the events time the device's
+    work, not the host's enqueue. Without the flush, ``fn`` runs once more
+    after that write, so its inputs are back in L2."""
     import torch
 
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
@@ -77,6 +85,8 @@ def time_ms(fn, iters=25, warmup=3):
     for _ in range(iters):
         torch.cuda.synchronize()
         flush.zero_()
+        if not flush_l2:
+            fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -123,6 +133,30 @@ def check_vq(z, cb):
     return len(diff), gap
 
 
+def check_flash_decode(out, q, kc, vc, pos, what):
+    """K2's output against the fp32 plain version: within 2e-2, and element
+    by element within 2^-7 |ref| + 1e-3 (bf16 output rounding is 2^-8
+    relative). Returns the max abs error."""
+    import torch
+    from ccvs_tpu_torch.ops.attention import flash_decode_plain
+
+    ref = flash_decode_plain(q.float(), kc.float(), vc.float(), pos)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.dtype == q.dtype and out.shape == q.shape
+    diff = (out.float() - ref).abs()
+    err = float(diff.max())
+    excess = float((diff - 2**-7 * ref.abs()).max())
+    log(f"K2 flash_decode {what}: max abs error {err:.3g} (max |ref| "
+        f"{float(ref.abs().max()):.3g}) against the fp32 plain version; worst error "
+        f"over 2^-7 |ref| {excess:.3g}")
+    if not err <= 2e-2:
+        raise AssertionError(f"flash_decode {what}: max abs error {err} > 2e-2")
+    if not excess <= 1e-3:
+        raise AssertionError(f"flash_decode {what}: error exceeds 2^-7 |ref| + 1e-3 "
+                             f"by {excess - 1e-3:.3g}")
+    return err
+
+
 def phase_kernels(records):
     import torch
     import torch.nn.functional as F
@@ -149,40 +183,42 @@ def phase_kernels(records):
                 "max_abs_err": gap, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
                 "bound_by": by, "library_ms": lib}
 
-    # K2 at the GPT decode shape: q (2, 16, 64), caches (2, 16, 1024, 64), bf16
+    # K2 at the GPT decode shape: q (2, 16, 64), caches (2, 16, 1024, 64), bf16,
+    # the position an int32 on the device, as the decode step gives it
     b, nh, length, hd = 2, 16, 1024, 64
     q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
     kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
     vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+    pos_t = torch.zeros(1, dtype=torch.int32, device="cuda")
     worst = 0.0
+    for pos in (0, 63, 64, 511, 1023):
+        pos_t.fill_(pos)
+        out = flash_decode_attention(q, kc, vc, pos_t)
+        worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"pos={pos}"))
+    # one launch captured in a CUDA graph serves every position
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode_attention(q, kc, vc, pos_t)
     for pos in (0, 63, 511, 1023):
-        out = flash_decode_attention(q, kc, vc, pos)
-        ref = flash_decode_plain(q.float(), kc.float(), vc.float(), pos)
-        torch.cuda.synchronize()
-        assert out.is_cuda and out.dtype == torch.bfloat16 and out.shape == q.shape
-        diff = (out.float() - ref).abs()
-        err = float(diff.max())
-        # bf16 output rounding: 2^-8 relative; allow 2^-7 relative + 1e-3 per element
-        excess = float((diff - 2**-7 * ref.abs()).max())
-        log(f"K2 flash_decode pos={pos}: max abs error {err:.3g} (max |ref| "
-            f"{float(ref.abs().max()):.3g}) against the fp32 plain version; worst error "
-            f"over 2^-7 |ref| {excess:.3g}")
-        if not err <= 2e-2:
-            raise AssertionError(f"flash_decode pos={pos}: max abs error {err} > 2e-2")
-        if not excess <= 1e-3:
-            raise AssertionError(f"flash_decode pos={pos}: error exceeds 2^-7 |ref| + 1e-3 "
-                                 f"by {excess - 1e-3:.3g}")
-        worst = max(worst, err)
-    pos = length - 1
-    ms = time_ms(lambda: flash_decode_attention(q, kc, vc, pos))
-    plain = time_ms(lambda: flash_decode_plain(q, kc, vc, pos))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc[:, :, :pos + 1], vc[:, :, :pos + 1]))
-    live = pos + 1
-    bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * live * hd), 4 * b * nh * live * hd,
-                       PEAK_FP32_PER_S)
-    log(f"K2 flash_decode pos={pos} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        pos_t.fill_(pos)
+        graph.replay()
+        worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"CUDA-graph replay pos={pos}"))
+    for pos in (63, 511, 1023):  # the range the rollout sweeps
+        pos_t.fill_(pos)
+        ms = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t))
+        plain = time_ms(lambda: flash_decode_plain(q, kc, vc, pos_t))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc[:, :, :pos + 1], vc[:, :, :pos + 1]))
+        live = pos + 1
+        bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * live * hd),
+                           4 * b * nh * live * hd, PEAK_FP32_PER_S)
+        log(f"K2 flash_decode pos={pos} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)")
+    # what the timer shows for any launch, and K2 with its inputs in L2
+    floor = time_ms(lambda: pos_t.fill_(pos))
+    warm = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t), flush_l2=False)
+    log(f"K2 flash_decode pos={pos} bf16 with the caches in L2: {warm:.4f} ms; the same timer "
+        f"around a one-element fill_ launch: {floor:.4f} ms")
     records["flash_decode"] = {
         "name": "flash_decode", "route": "cuda", "source": "ccvs_tpu_torch/csrc/flash_decode.cu",
         "replaces": "ccvs_tpu/ops/attention_pallas.py:64", "launches": None,
@@ -257,7 +293,7 @@ def phase_rollout(records, card):
 
 def device_profile(fn):
     """``fn()`` timed without the profiler, then traced: (wall s, device busy
-    s, device time by kernel name, largest first)."""
+    s, device time by kernel name, largest first, launches by kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -268,29 +304,36 @@ def device_profile(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-    return wall, sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
+            count[e.name] = count.get(e.name, 0) + 1
+    return wall, sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1]), count
 
 
 def phase_profile(ae, tr, vid, code):
     """Device busy share and the largest kernels of each stage, on parts of
-    the rollout: the 16-frame encode, 64 token decode steps, a 4-frame decode."""
+    the rollout: the 16-frame encode, 64 token decode steps early (positions
+    64-127, after a 64-token prefill) and late (positions 960-1023, after a
+    960-token prefill, where K2 reads the whole cache), a 4-frame decode."""
     import torch
 
     size = ae.cfg.tokens_per_frame
+    late = (VID_LEN - 1) * size
     work = {
         "encode (2 x 16 frames)": lambda: ae.encode(vid),
-        "tokens (prefill + 64 decode steps)": lambda: tr.generate(
+        "tokens early (prefill 64 + 64 decode steps at positions 64-127)": lambda: tr.generate(
             code[:, :N_CTX * size], torch.Generator(device="cuda").manual_seed(5),
             total_len=(N_CTX + 1) * size),
+        f"tokens late (prefill {late} + 64 decode steps at positions {late}-{late + size - 1})":
+            lambda: tr.generate(code[:, :late], torch.Generator(device="cuda").manual_seed(6),
+                                total_len=late + size),
         "decode (4 frames, 1 context)": lambda: ae.decode_video(
             code[:, :4 * size].reshape(BATCH, 4, size), ctx_frames=vid[:, :N_CTX], n_ctx=N_CTX),
     }
     for name, fn in work.items():
-        wall, busy, kernels = device_profile(fn)
+        wall, busy, kernels, count = device_profile(fn)
         if not kernels:
             log(f"profile {name}: wall {wall:.4f} s; device time not measured "
                 "(the profiler recorded no device events)")
@@ -299,6 +342,11 @@ def phase_profile(ae, tr, vid, code):
             f"({100 * busy / wall:.1f}% of wall, idle {100 * (1 - busy / wall):.1f}%)")
         for kname, t in kernels[:6]:
             log(f"    {100 * t / busy:5.1f}%  {t * 1e3:9.3f} ms  {kname[:110]}")
+        k2 = [(t, count[kname]) for kname, t in kernels if "flash_decode" in kname]
+        if k2:
+            t, n = sum(t for t, _ in k2), sum(n for _, n in k2)
+            log(f"    K2 flash_decode: {100 * t / busy:.1f}% of device time, {n} launches, "
+                f"{t / n * 1e6:.2f} us each")
 
 
 def phase_reference():

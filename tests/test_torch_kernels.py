@@ -47,6 +47,15 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
         assert bool(((d_k - d_p).abs() / d_p < 1e-5).all())
 
 
+def _check_against_plain(out, q, k, v, pos, rel, tol):
+    ref = flash_decode_plain(q.float(), k.float(), v.float(), pos)
+    assert out.is_cuda and out.dtype == q.dtype and out.shape == q.shape
+    err = (out.float() - ref).abs()
+    assert float(err.max()) <= tol, (pos, float(err.max()))
+    if rel:
+        assert bool((err <= rel * ref.abs() + 1e-3).all()), pos
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rel,tol", [(torch.bfloat16, 2**-7, 2e-2),
                                            (torch.float32, 0.0, 1e-5)])
@@ -61,13 +70,55 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, rel, tol):
     for pos in (0, 63, 64, 511, 1023):
         before = flash_decode_attention.launches
         out = flash_decode_attention(q, k, v, pos)
-        assert out.is_cuda and out.dtype == dtype
         assert flash_decode_attention.launches == before + 1
-        ref = flash_decode_plain(q.float(), k.float(), v.float(), pos)
-        err = (out.float() - ref).abs()
-        assert float(err.max()) <= tol
-        if rel:
-            assert bool((err <= rel * ref.abs() + 1e-3).all())
+        _check_against_plain(out, q, k, v, pos, rel, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [128, 1024, 2048])
+@pytest.mark.parametrize("dtype,rel,tol", [(torch.bfloat16, 2**-7, 2e-2),
+                                           (torch.float32, 0.0, 1e-5)])
+def test_flash_decode_kernel_device_pos(cuda, dtype, rel, tol, length):
+    """``pos`` as an int32 device tensor of shape (1,) or (): one launch per
+    call, the plain version's result (tolerances as above) on both sides of
+    each CTA's part and at the ends, and ``pos >= L`` clamped to ``L - 1``.
+    L 2048 walks two tiles per CTA in bf16, L 1024 two in fp32."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 16, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 16, length, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 16, length, 64, device=cuda, generator=g).to(dtype)
+    span = length // 8
+    for i, pos in enumerate((0, 1, span - 1, span, length // 2 + 3, length - 1, length, length + 5)):
+        p = torch.full((1,) if i % 2 else (), pos, dtype=torch.int32, device=cuda)
+        before = flash_decode_attention.launches
+        out = flash_decode_attention(q, k, v, p)
+        assert flash_decode_attention.launches == before + 1
+        _check_against_plain(out, q, k, v, pos, rel, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel,tol", [(torch.bfloat16, 2**-7, 2e-2),
+                                           (torch.float32, 0.0, 1e-5)])
+def test_flash_decode_cuda_graph_replay(cuda, dtype, rel, tol):
+    """One launch captured in a CUDA graph serves every position: the
+    position tensor is rewritten between replays."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(2, 16, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 16, 1024, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 16, 1024, 64, device=cuda, generator=g).to(dtype)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    flash_decode_attention(q, k, v, pos)  # build and configure outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode_attention(q, k, v, pos)
+    before = flash_decode_attention.launches
+    for p in (0, 63, 511, 1023):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_against_plain(out, q, k, v, p, rel, tol)
+    assert flash_decode_attention.launches == before  # replays do not pass the wrapper
 
 
 @pytest.mark.gpu

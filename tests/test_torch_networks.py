@@ -136,11 +136,37 @@ def test_gpt_full_logits(rng, transformers):
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
-def test_gpt_prefill_then_cached_steps_equal_full_forward(rng, transformers):
+@pytest.fixture(scope="module")
+def j_decode(transformers):
+    """The JAX package's prefill (of a (2, n) code over a 32-long cache) and
+    cached decode step (``j_decode_step_fn``, position traced), jitted once
+    for the module."""
+    jtr, params, _ = transformers
+    jm = jtr.model
+    s_idx, t_idx = np.arange(32) % 16, np.arange(32) // 16
+
+    @jax.jit
+    def j_prefill(code):
+        n = code.shape[1]
+        cache = jm.apply({"params": params}, 2, 32, method=type(jm).init_cache)
+        emb = jm.apply({"params": params}, code, 0, jnp.asarray(s_idx[:n]),
+                       jnp.asarray(t_idx[:n]), method=type(jm).embed_one)
+        return j_cache_to_layers(jm.apply({"params": params}, emb, cache,
+                                          method=type(jm).prefill)[1])
+
+    @jax.jit
+    def j_step(tok, s, t, pos, cache):
+        emb1 = jm.apply({"params": params}, tok, 0, s, t, method=type(jm).embed_one)[:, None]
+        return j_decode_step_fn(GPT, params, emb1, pos, cache, dtype=F32)
+
+    return j_prefill, j_step
+
+
+def test_gpt_prefill_then_cached_steps_equal_full_forward(rng, transformers, j_decode):
     """Prefill of 20 tokens, then 12 single-token decode steps through the
     cache (K2's plain version on the CPU): every step's logits equal the full
     forward's, and the JAX package's decode step."""
-    jtr, params, ttr = transformers
+    _, _, ttr = transformers
     model = ttr.model
     code = torch.from_numpy(rng.randint(0, 64, (2, 32)))
     full = to_np(model(code))
@@ -152,21 +178,7 @@ def test_gpt_prefill_then_cached_steps_equal_full_forward(rng, transformers):
     np.testing.assert_allclose(to_np(logits), full[:, :20], rtol=1e-4, atol=1e-4)
     layers = cache_to_layers(cache)
 
-    jm = jtr.model
-
-    @jax.jit
-    def j_prefill(code):
-        cache = jm.apply({"params": params}, 2, 32, method=type(jm).init_cache)
-        emb = jm.apply({"params": params}, code, 0, jnp.asarray(s_idx[:20].numpy()),
-                       jnp.asarray(t_idx[:20].numpy()), method=type(jm).embed_one)
-        return j_cache_to_layers(jm.apply({"params": params}, emb, cache,
-                                          method=type(jm).prefill)[1])
-
-    @jax.jit
-    def j_step(tok, s, t, pos, cache):
-        emb1 = jm.apply({"params": params}, tok, 0, s, t, method=type(jm).embed_one)[:, None]
-        return j_decode_step_fn(GPT, params, emb1, pos, cache, dtype=F32)
-
+    j_prefill, j_step = j_decode
     jcache = j_prefill(jnp.asarray(code[:, :20].numpy()))
     for j in range(20, 32):
         emb1 = model.embed_one(code[:, j], int(s_idx[j]), int(t_idx[j]))[:, None]
@@ -177,6 +189,44 @@ def test_gpt_prefill_then_cached_steps_equal_full_forward(rng, transformers):
         jstep, jcache = j_step(jnp.asarray(code[:, j].numpy()), int(s_idx[j]), int(t_idx[j]),
                                j, jcache)
         np.testing.assert_allclose(step, np.asarray(jstep), rtol=1e-4, atol=1e-4)
+
+
+def test_gpt_decode_step_with_device_position(rng, transformers, j_decode):
+    """The decode step driven by an int32 position tensor of shape (1,),
+    advanced in place once per step as the serving loop does: the same
+    logits and cache contents as the int path (exactly), and the JAX
+    package's decode step with a traced position (1e-4)."""
+    _, _, ttr = transformers
+    model = ttr.model
+    code = torch.from_numpy(rng.randint(0, 64, (2, 32)))
+    s_idx = torch.arange(32) % 16
+    t_idx = torch.arange(32) // 16
+    caches = []
+    for _ in range(2):
+        cache = model.init_cache(2, 32)
+        model.prefill(model.embed_one(code[:, :20], s_idx[:20], t_idx[:20]), cache)
+        caches.append(cache)
+    by_int, by_tensor = (cache_to_layers(c) for c in caches)
+
+    j_prefill, j_step = j_decode
+    jcache = j_prefill(jnp.asarray(code[:, :20].numpy()))
+    pos = torch.full((1,), 20, dtype=torch.int32)
+    for j in range(20, 32):
+        emb1 = model.embed_one(code[:, j], int(s_idx[j]), int(t_idx[j]))[:, None]
+        want = to_np(decode_step_fn(model, emb1, j, by_int))
+        got = to_np(decode_step_fn(model, emb1, pos, by_tensor))
+        np.testing.assert_array_equal(got, want)
+        jstep, jcache = j_step(jnp.asarray(code[:, j].numpy()), int(s_idx[j]), int(t_idx[j]),
+                               jnp.asarray(j, jnp.int32), jcache)
+        np.testing.assert_allclose(got, np.asarray(jstep), rtol=1e-4, atol=1e-4)
+        pos += 1
+    assert int(pos) == 32
+    for a, b in zip(caches[0], caches[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for layer in range(model.cfg.n_layer):
+        for ours, theirs in zip(by_tensor, jcache):
+            np.testing.assert_allclose(to_np(ours[layer]), np.asarray(theirs[layer]),
+                                       rtol=1e-4, atol=1e-4)
 
 
 def test_weights_loader_npz_and_rejects_missing_and_extra_keys(transformers, tmp_path):

@@ -17,7 +17,8 @@ from ccvs_tpu.ops.attention_pallas import flash_decode_attention as j_flash_deco
 from ccvs_tpu.ops.vq import vq_lookup as j_vq_lookup
 from ccvs_tpu.ops.vq_pallas import vq_indices_pallas
 from ccvs_tpu_torch.ops import convops, correlation, fused_act, upfirdn2d, warp
-from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
+from ccvs_tpu_torch.ops.attention import (flash_decode_attention, flash_decode_plain,
+                                          flash_decode_split_plain)
 from ccvs_tpu_torch.ops.vq import vq_embed, vq_indices, vq_indices_plain, vq_lookup, vq_lookup_auto
 
 jup = importlib.import_module("ccvs_tpu.ops.upfirdn2d")  # the package re-exports a function of that name
@@ -160,3 +161,39 @@ def test_flash_decode_plain_matches_pallas(rng):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
         np.testing.assert_array_equal(flash_decode_attention(_t(q), _t(k), _t(v), pos).numpy(),
                                       got.numpy())
+
+
+@pytest.mark.parametrize("shape", [(), (1,)])
+@pytest.mark.parametrize("pos", [0, 57, 127, 133])  # L - 1 and L + 5 (clamped) at L 128
+def test_flash_decode_tensor_pos_matches_pallas(rng, pos, shape):
+    """``pos`` as an int32 tensor (the decode step's): the wrapper and the
+    plain version equal the int path, and the Pallas kernel in interpret mode
+    given a traced ``jnp.int32``, fp32 within rtol 1e-5, atol 1e-6."""
+    b, nh, length, hd = 2, 4, 128, 64
+    q = rng.randn(b, nh, hd).astype(np.float32)
+    k = rng.randn(b, nh, length, hd).astype(np.float32)
+    v = rng.randn(b, nh, length, hd).astype(np.float32)
+    want = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(pos, jnp.int32), interpret=True)
+    tpos = torch.full(shape, pos, dtype=torch.int32)
+    got = flash_decode_plain(_t(q), _t(k), _t(v), tpos)
+    np.testing.assert_array_equal(got.numpy(), flash_decode_plain(_t(q), _t(k), _t(v), pos).numpy())
+    np.testing.assert_array_equal(flash_decode_attention(_t(q), _t(k), _t(v), tpos).numpy(),
+                                  got.numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])  # K2's tile in fp32 and in bf16
+@pytest.mark.parametrize("pos", [0, 1, 127, 128, 1023])  # 0, 1, L/8 - 1, L/8, L - 1
+def test_flash_decode_split_matches_plain(rng, pos, tile_rows):
+    """K2's arithmetic (8 parts of L/8 positions, tiles with online-softmax
+    rescaling, empty parts as (-inf, 0, 0), the cluster's combine) equals the
+    plain version, fp32 within rtol 1e-5, atol 1e-6 (the sums' order)."""
+    b, nh, length, hd = 1, 2, 1024, 64
+    q = _t(rng.randn(b, nh, hd).astype(np.float32))
+    k = _t(rng.randn(b, nh, length, hd).astype(np.float32))
+    v = _t(rng.randn(b, nh, length, hd).astype(np.float32))
+    got = flash_decode_split_plain(q, k, v, pos, tile_rows=tile_rows)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), flash_decode_plain(q, k, v, pos).numpy(),
+                               rtol=1e-5, atol=1e-6)
