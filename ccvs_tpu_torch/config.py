@@ -1,6 +1,7 @@
 """Configuration of the port: its own copy of the parts of
 ``ccvs_tpu/config.py`` that the serving path reads (the autoencoder and
-transformer groups and the BAIR-256 preset, ``config.py:470-540`` there).
+transformer groups, and the BAIR-256, Kinetics-600 and UCF-101 presets,
+``config.py:470-640`` there).
 
 Fields keep the JAX package's names and defaults. Only the fields the serving
 path reads are here: the options no preset sets (``no_corr``, ``skip_rgb``,
@@ -116,3 +117,38 @@ def bairhd_config(name: str = "bairhd") -> Config:
             top_k=100,
         ),
     )
+
+
+def kinetics_config() -> Config:
+    """Kinetics-600 prediction at 64x64 (scripts/kinetics/*.sh): 16-frame
+    clips continued from 5 context frames (``cond_len`` 320 = 5 x 64)."""
+    return Config(
+        name="kinetics600",
+        ae=AutoencoderConfig(
+            necf=64,
+            necf_mult=(1, 2, 4, 8),
+            z_size=256,
+            z_num=16384,
+            z_shape=(8, 8),
+            max_dim=64,
+            inter_p=0.75,
+            skip_context=tuple(range(1, 16)),
+            skip_memory=15,
+        ),
+        gpt=TransformerConfig(
+            z_num=16384,
+            z_len=1280,
+            cond_len=320,
+            n_layer=24,
+            n_head=16,
+            n_embd=1024,
+            num_blocks=20,
+            top_k=100,
+        ),
+    )
+
+
+def ucf101_config() -> Config:
+    """UCF-101 at 256x256 (scripts/ucf101/*.sh): BAIR-256's model; the
+    presets differ only in their data, which the port does not read."""
+    return Config(name="ucf101", ae=_bair_ae(), gpt=bairhd_config().gpt)

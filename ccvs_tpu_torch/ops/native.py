@@ -24,9 +24,11 @@ NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (all return an int but ccvs_error_string)
 SIGNATURES = {
-    # z, cb, part_val, part_idx, idx, n, k, d, splits, stream
-    "ccvs_vq_argmin": (_p, _p, _p, _p, _p, _i, _i, _i, _i, _p),
+    # z, cb, z_split, cb_split, e2, part_val, part_idx, idx, n, k, d, splits, stream
+    "ccvs_vq_argmin": (_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _p),
     "ccvs_vq_splits": (_i, _i),
+    "ccvs_vq_padded_depth": (_i,),
+    "ccvs_vq_padded_codes": (_i,),
     # q, k, v, pos_dev, pos_host, out, bh, len, hd, scale, dtype, stream
     "ccvs_flash_decode": (_p, _p, _p, _p, _i, _p, _i, _i, _i, _f, _i, _p),
     "ccvs_flash_decode_head_dim": (),
@@ -67,7 +69,8 @@ def build(force=False):
                                   text=True) for cmd in cmds]
         outs = [proc.communicate()[0] for proc in procs]
         tmp = os.path.join(tmp_dir, "lib.so")
-        link_cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        # -ldl: K1 looks up cuTensorMapEncodeTiled in libcuda.so.1 with dlopen
+        link_cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs, "-ldl"]
         for cmd, proc, out in zip(cmds, procs, outs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")

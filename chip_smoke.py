@@ -13,16 +13,21 @@ Phases, each printing its wall time:
    path's shapes (K2 with its position an int32 on the device, at positions
    0, 63, 64, 511 and 1023, and once captured in a CUDA graph and replayed at
    positions 0, 63, 511 and 1023), then timed (CUDA events, L2 flushed,
-   median; K2 at positions 63, 511 and 1023) beside its plain version, a
-   PyTorch library call that the port never makes, and its bound;
+   median; K1 at the encode shapes of both rollouts, K2 at positions 63, 511
+   and 1023) beside its plain version, a PyTorch library call that the port
+   never makes, and its bound (K1's against both the fp32 CUDA cores and its
+   own three TF32 tensor-core products);
 3. rollout: ``VideoGenerator.generate`` on the full-width BAIR-256 config in
    bf16 from a seeded init, batch 2, 16 frames, 1 context frame: one warm-up
    (its stages timed one by one) and one timed run, with every kernel's
    launch count read around the timed run;
-4. profile: the device's busy share and largest kernels per stage, on parts
-   of the rollout (``torch.profiler``), with the token stage early and late
-   in the window;
-5. reference: a small fp32 configuration generated greedily on the GPU and on
+4. kinetics: the same on the full-width Kinetics-600 config (64x64, 16384
+   codes, 5 context frames, a 24-layer GPT over a 1280-token window), batch
+   2, 16 frames;
+5. profile: the device's busy share and largest kernels per stage, on parts
+   of the BAIR rollout (``torch.profiler``), with the token stage early and
+   late in the window;
+6. reference: a small fp32 configuration generated greedily on the GPU and on
    the CPU (where the kernels' plain versions run) must agree.
 
 The last two lines are the kernels' JSON record and the result line
@@ -37,7 +42,8 @@ import time
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-BATCH, VID_LEN, N_CTX = 2, 16, 1
+PEAK_TF32_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
+BATCH, VID_LEN = 2, 16
 
 
 def log(*parts):
@@ -164,24 +170,40 @@ def phase_kernels(records):
     from ccvs_tpu_torch.ops.vq import vq_indices, vq_indices_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    # K1 at the BAIR shape (z of 2 x 16 frames x 64 tokens) and the Kinetics one
-    for n, d, k, main in ((2048, 512, 1024, True), (2048, 256, 16384, False)):
+    # K1 at the rollouts' shapes: the encode of 2 x 16 frames x 64 tokens and
+    # the context re-encode (BAIR: 1024 codes of 512; Kinetics-600: 16384 of
+    # 256); timed at the encode shapes
+    shapes = []
+    for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, False),
+                           (2048, 256, 16384, True), (640, 256, 16384, False)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
+        what = (f"K1 vq_argmin z ({n}, {d}) x codebook ({k}, {d}) fp32: indices equal but "
+                f"{ties} near-ties (max distance gap {gap:.3g})")
+        if not timed:
+            log(what)
+            continue
         ms = time_ms(lambda: vq_indices(z, cb))
         plain = time_ms(lambda: vq_indices_plain(z, cb))
         lib = time_ms(lambda: torch.cdist(z, cb).argmin(1))
-        bnd, by = bound_ms(4 * (n * d + k * d + n), 2 * n * k * d, PEAK_FP32_PER_S)
-        log(f"K1 vq_argmin z ({n}, {d}) x codebook ({k}, {d}) fp32: indices equal but "
-            f"{ties} near-ties (max distance gap {gap:.3g}); kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, cdist+argmin {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-        if main:
-            records["vq_argmin"] = {
-                "name": "vq_argmin", "route": "cuda", "source": "ccvs_tpu_torch/csrc/vq.cu",
-                "replaces": "ccvs_tpu/ops/vq_pallas.py:59", "launches": None,
-                "max_abs_err": gap, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                "bound_by": by, "library_ms": lib}
+        n_bytes = 4 * (n * d + k * d + n)
+        fp32, _ = bound_ms(n_bytes, 2 * n * k * d, PEAK_FP32_PER_S)
+        bnd, by = bound_ms(n_bytes, 3 * 2 * n * k * d, PEAK_TF32_PER_S)  # three TF32 products
+        log(f"{what}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+argmin {lib:.4f} ms; "
+            f"bound {bnd:.4f} ms on the tensor cores in 3xTF32 ({by}; {100 * bnd / ms:.1f}% of "
+            f"it), {fp32:.4f} ms on the fp32 CUDA cores, bytes alone "
+            f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+        shapes.append({"n": n, "k": k, "d": d, "max_abs_err": gap, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+                       "bound_fp32_cuda_cores_ms": fp32})
+    # the record's numbers are the BAIR shape's; "shapes" has both
+    records["vq_argmin"] = {
+        "name": "vq_argmin", "route": "cuda", "source": "ccvs_tpu_torch/csrc/vq.cu",
+        "replaces": "ccvs_tpu/ops/vq_pallas.py:59", "launches": None,
+        **{key: shapes[0][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "bound_fp32_cuda_cores_ms")},
+        "shapes": shapes, "launches_by_rollout": {}}
 
     # K2 at the GPT decode shape: q (2, 16, 64), caches (2, 16, 1024, 64), bf16,
     # the position an int32 on the device, as the decode step gives it
@@ -223,18 +245,19 @@ def phase_kernels(records):
         "name": "flash_decode", "route": "cuda", "source": "ccvs_tpu_torch/csrc/flash_decode.cu",
         "replaces": "ccvs_tpu/ops/attention_pallas.py:64", "launches": None,
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": lib}
+        "bound_by": by, "library_ms": lib, "launches_by_rollout": {}}
 
 
-def phase_rollout(records, card):
+def phase_rollout(records, card, cfg, n_ctx):
+    """Warm-up with its stages timed, then one timed ``generate`` with every
+    kernel's launch count read around it; returns the models, the clip and
+    the warm-up's tokens."""
     import torch
-    from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.generate import VideoGenerator
     from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
     from ccvs_tpu_torch.ops.attention import flash_decode_attention
     from ccvs_tpu_torch.ops.vq import vq_indices
 
-    cfg = bairhd_config()
     t0 = time.perf_counter()
     ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0)
     tr = TokenTransformer(cfg.gpt, dtype=torch.bfloat16).init(seed=1)
@@ -244,7 +267,7 @@ def phase_rollout(records, card):
                      generator=g) * 2 - 1
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in ae.parameters()) + sum(p.numel() for p in tr.parameters())
-    log(f"init: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.1f} s")
+    log(f"{cfg.name} init: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.1f} s")
 
     # warm-up: the calls generate() makes, one by one, each timed
     size = cfg.ae.tokens_per_frame
@@ -253,14 +276,15 @@ def phase_rollout(records, card):
     enc = ae.encode(vid)
     stages["encode"] = _synced_since(t0)
     t0 = time.perf_counter()
-    ctx_code = enc["code"].reshape(BATCH, -1)[:, :N_CTX * size]
+    ctx_code = enc["code"].reshape(BATCH, -1)[:, :n_ctx * size]
     code = tr.generate(ctx_code, torch.Generator(device="cuda").manual_seed(3),
                        total_len=VID_LEN * size)["code"]
     stages["tokens"] = _synced_since(t0)
     t0 = time.perf_counter()
-    ae.decode_video(code.reshape(BATCH, VID_LEN, size), ctx_frames=vid[:, :N_CTX], n_ctx=N_CTX)
+    ae.decode_video(code.reshape(BATCH, VID_LEN, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
     stages["decode"] = _synced_since(t0)
-    log("warm-up rollout by stage: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+    log(f"{cfg.name} warm-up rollout by stage: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; total {sum(stages.values()):.3f} s")
 
     vq_indices.launches = 0
@@ -268,7 +292,7 @@ def phase_rollout(records, card):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = gen.generate(vid, torch.Generator(device="cuda").manual_seed(4), rec=False,
-                       n_ctx_frames=N_CTX)
+                       n_ctx_frames=n_ctx)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"vq_argmin": vq_indices.launches, "flash_decode": flash_decode_attention.launches}
@@ -277,16 +301,19 @@ def phase_rollout(records, card):
     assert fake.is_cuda, "fake video is not on the GPU"
     assert fake.shape == (BATCH, VID_LEN, cfg.ae.max_dim, cfg.ae.max_dim, 3), fake.shape
     assert bool(torch.isfinite(fake).all()), "fake video has non-finite values"
-    decode_steps = (VID_LEN - N_CTX) * size
-    assert launches["vq_argmin"] >= 1, launches
+    decode_steps = (VID_LEN - n_ctx) * size
+    # K1: the encode of the clip and the re-encode of its context frames
+    assert launches["vq_argmin"] == 2, launches
     assert launches["flash_decode"] == cfg.gpt.n_layer * decode_steps, (
         f"flash_decode launched {launches['flash_decode']} times, expected "
         f"{cfg.gpt.n_layer} layers x {decode_steps} decode steps")
     for name, n in launches.items():
-        records[name]["launches"] = n
-    frames = BATCH * (VID_LEN - N_CTX)
-    log(f"rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} frames/s "
-        f"(batch {BATCH}, {VID_LEN} frames, {N_CTX} context), peak memory "
+        if records[name]["launches"] is None:  # the record's count is the first rollout's
+            records[name]["launches"] = n
+        records[name]["launches_by_rollout"][cfg.name] = n
+    frames = BATCH * (VID_LEN - n_ctx)
+    log(f"{cfg.name} rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} "
+        f"frames/s (batch {BATCH}, {VID_LEN} frames, {n_ctx} context), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, on {card}")
     return ae, tr, vid, code
 
@@ -320,17 +347,18 @@ def phase_profile(ae, tr, vid, code):
     import torch
 
     size = ae.cfg.tokens_per_frame
+    n_ctx = 1  # the BAIR rollout's
     late = (VID_LEN - 1) * size
     work = {
         "encode (2 x 16 frames)": lambda: ae.encode(vid),
         "tokens early (prefill 64 + 64 decode steps at positions 64-127)": lambda: tr.generate(
-            code[:, :N_CTX * size], torch.Generator(device="cuda").manual_seed(5),
-            total_len=(N_CTX + 1) * size),
+            code[:, :n_ctx * size], torch.Generator(device="cuda").manual_seed(5),
+            total_len=(n_ctx + 1) * size),
         f"tokens late (prefill {late} + 64 decode steps at positions {late}-{late + size - 1})":
             lambda: tr.generate(code[:, :late], torch.Generator(device="cuda").manual_seed(6),
                                 total_len=late + size),
         "decode (4 frames, 1 context)": lambda: ae.decode_video(
-            code[:, :4 * size].reshape(BATCH, 4, size), ctx_frames=vid[:, :N_CTX], n_ctx=N_CTX),
+            code[:, :4 * size].reshape(BATCH, 4, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx),
     }
     for name, fn in work.items():
         wall, busy, kernels, count = device_profile(fn)
@@ -413,11 +441,16 @@ def main():
                 log("  " + line.strip())
     with phase("2 kernels"):
         phase_kernels(records)
+    from ccvs_tpu_torch.config import bairhd_config, kinetics_config
+
     with phase("3 rollout"):
-        models = phase_rollout(records, card)
-    with phase("4 profile"):
+        models = phase_rollout(records, card, bairhd_config(), n_ctx=1)
+    with phase("4 kinetics"):
+        # 5 context frames: cond_len 320 / 64 tokens a frame
+        phase_rollout(records, card, kinetics_config(), n_ctx=5)
+    with phase("5 profile"):
         phase_profile(*models)
-    with phase("5 reference"):
+    with phase("6 reference"):
         phase_reference()
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from ccvs_tpu import config as jcfg
 from ccvs_tpu.config import Config as JConfig
 from ccvs_tpu.generate import VideoGenerator as JGen
 from ccvs_tpu.models import FrameAutoencoder as JAE
 from ccvs_tpu.models import TokenTransformer as JTT
+from ccvs_tpu_torch import config as tcfg
 from ccvs_tpu_torch.config import Config
 from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
@@ -100,6 +102,16 @@ def test_generate_bf16_is_finite(pair):
         vid, torch.Generator().manual_seed(0), rec=False, n_ctx_frames=1)
     assert out["fake"].shape == (1, T, 32, 32, 3) and out["fake"].dtype == torch.bfloat16
     assert bool(torch.isfinite(out["fake"]).all())
+
+
+@pytest.mark.parametrize("preset", ["bairhd_config", "kinetics_config", "ucf101_config"])
+def test_presets_match_ccvs_tpu(preset):
+    """The port's presets equal the JAX package's on every field the port
+    has (``port_config`` keeps the shared ones)."""
+    want, got = getattr(jcfg, preset)(), getattr(tcfg, preset)()
+    assert got.name == want.name
+    assert got.ae == port_config(want.ae)
+    assert got.gpt == port_config(want.gpt)
 
 
 def test_port_imports_neither_jax_nor_ccvs_tpu():

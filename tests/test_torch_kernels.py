@@ -26,9 +26,12 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,d", [(2048, 1024, 512), (77, 1000, 40), (2048, 16384, 256)])
+@pytest.mark.parametrize("n,k,d", [(2048, 1024, 512), (77, 1000, 40), (2048, 16384, 256),
+                                   (640, 16384, 256), (128, 1024, 512)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
-    """K1 on the card: indices equal to the plain version's, near-ties aside."""
+    """K1 on the card: indices equal to the plain version's, near-ties aside.
+    The shapes of both rollouts: BAIR's encode (2048) and context re-encode
+    (128), Kinetics-600's (2048 and 640), and a ragged one."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -45,6 +48,61 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
         d_k = ((zd - cd[idx[diff].long()]) ** 2).sum(1)
         d_p = ((zd - cd[ref[diff].long()]) ** 2).sum(1)
         assert bool(((d_k - d_p).abs() / d_p < 1e-5).all())
+
+
+@pytest.mark.gpu
+def test_vq_kernel_near_tie(cuda):
+    """Codes 3 and 5 differ only in the last bits of a few elements, and the
+    first 128 rows lie near them (code 3 plus noise of 0.1, a distance of
+    ~2.6 against ~7.7 to any other code): the kernel picks code 3 or 5, what
+    the fp32 plain version picks or one no further than 1e-5 relative; the
+    exact duplicate code 9 = code 3 never wins over the smaller index."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    z = torch.randn(256, 256, device=cuda, generator=g)
+    cb = torch.randn(1024, 256, device=cuda, generator=g) * 0.1
+    bits = cb[3].clone().view(torch.int32)
+    bits[:8] += torch.arange(1, 9, dtype=torch.int32, device=cuda)  # 1-8 ulp
+    cb[5] = bits.view(torch.float32)
+    cb[9] = cb[3]
+    z[:128] = cb[3] + 0.1 * torch.randn(128, 256, device=cuda, generator=g)
+    idx = vq_indices(z, cb)
+    ref = vq_indices_plain(z, cb)
+    assert set(idx[:128].tolist()) <= {3, 5} and 9 not in idx.tolist()
+    diff = (idx != ref).nonzero().flatten()
+    if len(diff):
+        zd, cd = z[diff].double(), cb.double()
+        d_k = ((zd - cd[idx[diff].long()]) ** 2).sum(1)
+        d_p = ((zd - cd[ref[diff].long()]) ** 2).sum(1)
+        assert bool(((d_k - d_p).abs() / d_p < 1e-5).all())
+
+
+@pytest.mark.gpu
+def test_vq_kernel_scratch_from_wrapper(cuda, monkeypatch):
+    """K1 allocates nothing itself: its pre-pass scratch (TF32 halves of z
+    and the codebook, depth padded to 64, and ||e||^2 padded to 1024 codes),
+    the splits' partial results and the output come from the wrapper's
+    ``torch.empty`` on the card."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    z = torch.randn(77, 40, device=cuda, generator=g)
+    cb = torch.randn(1000, 40, device=cuda, generator=g)
+    vq_indices(z, cb)  # build the library outside the recording
+    made = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append((tuple(t.shape), t.dtype, t.device.type))
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    idx = vq_indices(z, cb)
+    monkeypatch.undo()
+    assert torch.equal(idx, vq_indices_plain(z, cb))
+    shapes = [m[0] for m in made]
+    assert {(2, 77, 64), (2, 1000, 64), (1024,), (77,)} <= set(shapes), shapes
+    assert all(dev == "cuda" for _, _, dev in made)
+    parts = [m for m in made if m[0] not in {(2, 77, 64), (2, 1000, 64), (1024,), (77,)}]
+    assert sorted(str(m[1]) for m in parts) == ["torch.float32", "torch.int32"], parts
 
 
 def _check_against_plain(out, q, k, v, pos, rel, tol):

@@ -19,7 +19,11 @@ from ccvs_tpu.ops.vq_pallas import vq_indices_pallas
 from ccvs_tpu_torch.ops import convops, correlation, fused_act, upfirdn2d, warp
 from ccvs_tpu_torch.ops.attention import (flash_decode_attention, flash_decode_plain,
                                           flash_decode_split_plain)
-from ccvs_tpu_torch.ops.vq import vq_embed, vq_indices, vq_indices_plain, vq_lookup, vq_lookup_auto
+from ccvs_tpu_torch.ops.vq import (vq_embed, vq_indices, vq_indices_plain, vq_indices_split_plain,
+                                  vq_lookup, vq_lookup_auto)
+from ccvs_tpu_torch.models import FrameAutoencoder
+from ccvs_tpu_torch.weights import load_npz
+from torch_parity import kinetics_trained, port_config, smooth_clip
 
 jup = importlib.import_module("ccvs_tpu.ops.upfirdn2d")  # the package re-exports a function of that name
 
@@ -138,6 +142,64 @@ def test_vq_indices_plain_matches_pallas(rng, n, tie):
         zq, idx = fn(_t(z.reshape(7, n // 7, 32)), _t(cb))
         np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
         np.testing.assert_allclose(zq.numpy(), np.asarray(zq_j), rtol=0, atol=0)
+
+
+def _assert_equal_but_near_ties(z, cb, got, want):
+    """Indices equal, except rows whose two codes' squared distances (in
+    float64) differ by under 1e-5 relative: fp32 rounding cannot order them."""
+    diff = np.flatnonzero(got != want)
+    if len(diff):
+        zd, cd = z[diff].astype(np.float64), cb.astype(np.float64)
+        d_g = ((zd - cd[got[diff]]) ** 2).sum(1)
+        d_w = ((zd - cd[want[diff]]) ** 2).sum(1)
+        rel = np.abs(d_g - d_w) / np.abs(d_w)
+        assert (rel < 1e-5).all(), (len(diff), rel.max())
+    return len(diff)
+
+
+@pytest.mark.parametrize("n,k,d,tie", [(300, 1024, 256, False), (77, 1024, 40, True),
+                                       (128, 2048, 512, False)])
+def test_vq_split_plain_matches_plain_and_pallas(rng, n, k, d, tie):
+    """K1's 3xTF32 arithmetic (hi.hi + hi.lo + lo.hi of TF32-rounded
+    halves; D 40 is a depth the kernel pads) gives the fp32 argmin of the
+    plain version and of the Pallas kernel in interpret mode, near-ties under 1e-5
+    relative aside; an exact duplicate code goes to the smaller index. On
+    chip_smoke's scales: z ~ N(0, 1), codebook ~ N(0, 0.01)."""
+    z = rng.randn(n, d).astype(np.float32)
+    cb = (rng.randn(k, d) * 0.1).astype(np.float32)
+    if tie:
+        cb[700] = cb[300]
+        z[5] = cb[300]
+    got = vq_indices_split_plain(_t(z), _t(cb))
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    got = got.numpy()
+    plain = vq_indices_plain(_t(z), _t(cb)).numpy()
+    pallas = np.asarray(vq_indices_pallas(jnp.asarray(z), jnp.asarray(cb), interpret=True))
+    _assert_equal_but_near_ties(z, cb, got, plain)
+    _assert_equal_but_near_ties(z, cb, got, pallas)
+    if tie:
+        assert got[5] == 300
+
+
+def test_vq_split_plain_trained_codebook():
+    """Real latents on a trained codebook: the trained Kinetics-600 encoder's
+    latents of a 6-frame clip (384 rows) against the first 4096 of its 16384
+    trained codes, split arithmetic against the plain version and the Pallas
+    kernel in interpret mode. These codes are short (norm ~0.004) beside
+    latents of norm ~10, so the distances to different codes differ by only
+    ~1e-4 relative: a hard case for rounding."""
+    cfg, path = kinetics_trained()
+    ae = load_npz(FrameAutoencoder(port_config(cfg.ae), dtype=torch.float32, device="cpu"), path,
+                  prefix="ae_gen")
+    with torch.no_grad():
+        z, _ = ae.encoder(torch.from_numpy(smooth_clip(1, 6, cfg.ae.max_dim)))
+    z = z.reshape(-1, cfg.ae.z_size).numpy()
+    cb = ae.quantizer.embedding.detach()[:4096].numpy()
+    assert z.shape == (384, 256)
+    got = vq_indices_split_plain(_t(z), _t(cb)).numpy()
+    _assert_equal_but_near_ties(z, cb, got, vq_indices_plain(_t(z), _t(cb)).numpy())
+    _assert_equal_but_near_ties(
+        z, cb, got, np.asarray(vq_indices_pallas(jnp.asarray(z), jnp.asarray(cb), interpret=True)))
 
 
 def test_vq_embed_mult(rng):

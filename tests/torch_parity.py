@@ -2,10 +2,12 @@
 both packages and the transfer of ccvs_tpu parameters into the port."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from ccvs_tpu import config as jcfg
@@ -23,6 +25,37 @@ GPT = jcfg.TransformerConfig(
     z_num=64, z_len=48, z_chunk=16, num_blocks=3, cond_len=16, n_layer=2, n_head=4,
     n_embd=64, z_shape=(4, 4), emb_mode="temporal", top_k=1,
 )
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# trained Kinetics-600 weights (trees ae_gen and gpt) and their config: 64 px,
+# 16384 codes, skip_memory 4, GPT 8 x 512 with cond_len 320
+KINETICS_NPZ = os.path.join(REPO, "runs_r5", "mid_weights_kinetics_fp16.npz")
+KINETICS_CONFIG = os.path.join(REPO, "runs_r5", "r5_kinetics_eval_config.json")
+
+
+def kinetics_trained():
+    """The ccvs_tpu config of the trained Kinetics-600 weights and the npz's
+    path; skips the test where the npz is absent (it is kept out of copies
+    of the repo that leave the weights behind)."""
+    if not os.path.exists(KINETICS_NPZ):
+        pytest.skip(f"trained weights {os.path.relpath(KINETICS_NPZ, REPO)} not present")
+    return jcfg.Config.load(KINETICS_CONFIG), KINETICS_NPZ
+
+
+def smooth_clip(batch, frames, size, seed=0):
+    """A clip of drifting colour gratings in [-1, 1], ``(B, T, size, size, 3)``
+    fp32: smooth content with motion, nearer to a video than uniform noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size), indexing="ij")
+    vid = np.zeros((batch, frames, size, size, 3), np.float32)
+    for b in range(batch):
+        for c in range(3):
+            fx, fy, phase, speed = rng.uniform(1, 4), rng.uniform(1, 4), rng.uniform(0, 6.3), \
+                rng.uniform(-1, 1)
+            for t in range(frames):
+                vid[b, t, :, :, c] = 0.8 * np.sin(2 * np.pi * (fx * xx + fy * yy) + phase + t * speed)
+    return vid
 
 
 def port_config(cfg):
