@@ -1,15 +1,16 @@
 """Configuration of the port: its own copy of the parts of
-``ccvs_tpu/config.py`` that the serving path reads (the autoencoder and
-transformer groups, and the BAIR-256, Kinetics-600 and UCF-101 presets,
-``config.py:470-640`` there).
+``ccvs_tpu/config.py`` that the serving paths read (the autoencoder,
+transformer and state groups, and the BAIR-256, Kinetics-600 and UCF-101
+presets with their state-conditioned, point-to-point and unconditional
+variants, ``config.py:470-640`` there).
 
 Fields keep the JAX package's names and defaults. Only the fields the serving
-path reads are here: the options no preset sets (``no_corr``, ``skip_rgb``,
-``keep_first``, ...), the conditioning modes (state, p2p, class labels,
-audio, layouts), int8 serving and the training options come with the slices
-that need them.
+paths read are here: the options no preset sets (``no_corr``, ``skip_rgb``,
+``keep_first``, ...), the class-label, audio, deblurring and layout modes,
+beam search and the training options come with the slices that need them.
 """
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -61,6 +62,7 @@ class TransformerConfig:
 
     z_num: int = 1024  # vocabulary
     z_len: int = 1024  # window capacity in tokens
+    z_chunk: int = 64  # tokens added per slide of the window
     num_blocks: int = 16
     cond_len: int = 64
     n_layer: int = 24
@@ -68,14 +70,43 @@ class TransformerConfig:
     n_embd: int = 1024
     z_shape: Tuple[int, int] = (8, 8)
 
+    # conditioning modes
+    p2p: bool = False  # the end frame's tokens are a prefix ("point to point")
+    state: bool = False
+    state_front: bool = False  # all state tokens before the frame tokens
+    state_num: int = 0  # state vocabulary
+    state_size: int = 0  # state tokens per frame
+    use_start_token: bool = False
+
     # sampling
     sample: bool = True
     temperature: float = 1.0
     top_k: Optional[int] = 100
+    sample_state: bool = False
+    temperature_state: float = 1.0
+    top_k_state: Optional[int] = None
+
+    # int8 weights and activations in the decode step (nn/quantized.py)
+    serve_int8: bool = False
 
     @property
     def size(self) -> int:
         return self.z_shape[0] * self.z_shape[1]
+
+    @property
+    def tot_size(self) -> int:
+        return self.size + self.state_size
+
+
+@dataclass(frozen=True)
+class StateConfig:
+    """State estimator (reference ``options.py:349-372``, prefix ``s_``)."""
+
+    z_size: int = 512
+    z_shape: Tuple[int, int] = (8, 8)
+    state_hsize: int = 128
+    state_size: int = 2
+    state_num: int = 128
 
 
 @dataclass(frozen=True)
@@ -83,6 +114,7 @@ class Config:
     name: str = "experiment"
     ae: AutoencoderConfig = field(default_factory=AutoencoderConfig)
     gpt: TransformerConfig = field(default_factory=TransformerConfig)
+    state: StateConfig = field(default_factory=StateConfig)
 
 
 def _bair_ae() -> AutoencoderConfig:
@@ -116,7 +148,32 @@ def bairhd_config(name: str = "bairhd") -> Config:
             num_blocks=16,
             top_k=100,
         ),
+        state=StateConfig(state_size=2, state_num=128),
     )
+
+
+def bairhd_state_config() -> Config:
+    """State-conditioned BAIR (scripts/bairhd/train_transformer_state.sh): two
+    state tokens (the arm's x and y) before each frame's 64."""
+    c = bairhd_config("bairhd_state")
+    return dataclasses.replace(c, gpt=dataclasses.replace(
+        c.gpt, z_len=1056, z_chunk=66, state=True, state_num=128, state_size=2,
+        sample_state=True, top_k_state=10))
+
+
+def bairhd_p2p_config() -> Config:
+    """Point-to-point BAIR (scripts/bairhd/train_transformer_p2p.sh): the end
+    frame's tokens are a prefix of the window."""
+    c = bairhd_config("bairhd_p2p")
+    return dataclasses.replace(c, gpt=dataclasses.replace(c.gpt, p2p=True))
+
+
+def bairhd_unc_config() -> Config:
+    """Unconditional BAIR (scripts/bairhd/train_transformer_unc.sh): a start
+    token and no context frame."""
+    c = bairhd_config("bairhd_unc")
+    return dataclasses.replace(c, gpt=dataclasses.replace(c.gpt, use_start_token=True,
+                                                          cond_len=0))
 
 
 def kinetics_config() -> Config:
@@ -148,7 +205,15 @@ def kinetics_config() -> Config:
     )
 
 
+def kinetics_p2p_config() -> Config:
+    """Point-to-point Kinetics-600 (scripts/kinetics/save_videos_p2p.sh:
+    --x_p2p --p2p_len 16 --x_z_len 1024 --x_z_chunk 64)."""
+    c = kinetics_config()
+    return dataclasses.replace(c, name="kinetics600_p2p", gpt=dataclasses.replace(
+        c.gpt, p2p=True, z_len=1024, num_blocks=16, cond_len=64))
+
+
 def ucf101_config() -> Config:
     """UCF-101 at 256x256 (scripts/ucf101/*.sh): BAIR-256's model; the
     presets differ only in their data, which the port does not read."""
-    return Config(name="ucf101", ae=_bair_ae(), gpt=bairhd_config().gpt)
+    return bairhd_config("ucf101")

@@ -76,11 +76,17 @@ class FrameAutoencoder(nn.Module):
 
     # ---------------- single-frame decode ----------------
 
-    def decode_frame(self, z, inter_fifo, fifo_mask):
+    def decode_frame(self, z, inter_fifo, fifo_mask, extra_ctx=None):
         """Decode one frame ``z`` ``(B, h, w, z_size)`` against the context
         FIFO (per resolution ``(B, M, h_r, w_r, c_r)``, slot ``M-1`` the most
         recent) with slot validity ``fifo_mask`` ``(B, M)``; returns the RGB
-        frame ``(B, H, W, 3)``."""
+        frame ``(B, H, W, 3)``. ``extra_ctx`` (per resolution ``(B, h_r, w_r,
+        c_r)``, the point-to-point end frame's features) is one more context
+        slot after the FIFO's, always valid."""
+        if extra_ctx is not None:
+            inter_fifo = [torch.cat([f, e[:, None].to(f.dtype)], dim=1)
+                          for f, e in zip(inter_fifo, extra_ctx)]
+            fifo_mask = torch.cat([fifo_mask, fifo_mask.new_ones(fifo_mask.shape[0], 1)], dim=1)
         return self.decoder(z.to(self.dtype), inter_fifo, ctx_mask=fifo_mask)
 
     def refresh_inter(self, rgb):
@@ -102,23 +108,27 @@ class FrameAutoencoder(nn.Module):
 
     # ---------------- video decode (doubly-AR rollout) ----------------
 
-    def _decode_step_fn(self, fifo, curr, z_t, kb=None):
+    def _decode_step_fn(self, fifo, curr, z_t, kb=None, extra_ctx=None):
         """Decode frame ``z_t`` against the last ``kb`` FIFO slots (default,
-        or 0: all of them), then refresh the context and push it. Slots with
-        ``dt > curr`` are invalid, so ``kb = min(curr, M)`` gives the result
-        of the whole FIFO."""
+        or 0: all of them) and ``extra_ctx``, then refresh the context and
+        push it. Slots with ``dt > curr`` are invalid, so ``kb = min(curr,
+        M)`` gives the result of the whole FIFO."""
         m = fifo[0].shape[1]
         kb = kb or m
         fifo_k = [f[:, m - kb:] for f in fifo] if kb < m else fifo
-        rgb = self.decode_frame(z_t, fifo_k, self.fifo_mask(z_t.shape[0], curr, slots=kb))
+        rgb = self.decode_frame(z_t, fifo_k, self.fifo_mask(z_t.shape[0], curr, slots=kb),
+                                extra_ctx)
         return self.fifo_push(fifo, self.refresh_inter(rgb)), rgb
 
     @torch.no_grad()
-    def decode_video(self, codes, ctx_frames=None, n_ctx=1):
+    def decode_video(self, codes, ctx_frames=None, n_ctx=1, cond_inter=None):
         """Decode tokens ``codes`` ``(B, T, h*w)`` autoregressively in image
         space: the ``n_ctx`` context frames against their own (encoded)
         context features, then each later frame against the FIFO of the
-        re-encoded frames before it. Returns ``(B, T, H, W, 3)``."""
+        re-encoded frames before it, and ``cond_inter`` (the end frame's
+        context features in point-to-point mode), an extra slot at every
+        step. With it, every frame decodes against all M FIFO slots, as the
+        JAX package does. Returns ``(B, T, H, W, 3)``."""
         cfg = self.cfg
         b, t = codes.shape[:2]
         m = cfg.skip_memory
@@ -135,6 +145,9 @@ class FrameAutoencoder(nn.Module):
                 fifo[r][:, m - take:] = ctx_inters[r][:, n_ctx - take:n_ctx].to(self.dtype)
         frames = [] if ctx_rgb is None else [ctx_rgb]
         for curr in range(n_ctx, t):
-            fifo, rgb = self._decode_step_fn(fifo, curr, z_all[:, curr], kb=min(curr, m))
+            if cond_inter is None:
+                fifo, rgb = self._decode_step_fn(fifo, curr, z_all[:, curr], kb=min(curr, m))
+            else:
+                fifo, rgb = self._decode_step_fn(fifo, curr, z_all[:, curr], extra_ctx=cond_inter)
             frames.append(rgb[:, None])
         return torch.cat(frames, dim=1)

@@ -1,0 +1,61 @@
+"""State model: the estimator and a scalar codebook over the state's
+coordinates (counterpart of ``ccvs_tpu/models/state_model.py``), serving
+only (the regression and VQ losses come with the training slice).
+
+The state tokens are the indices of a ``VectorQuantizer(state_num, 1)``: each
+coordinate is its own depth-1 vector. On CUDA that search is kernel K1, which
+pads the depth to 32 and masks codes past ``state_num``.
+"""
+
+import torch
+from torch import nn
+
+from ccvs_tpu_torch.device import resolve_device
+from ccvs_tpu_torch.nn.layers import EqualConv2d, EqualLinear
+from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
+from ccvs_tpu_torch.nn.state import StateEstimator
+
+
+class StateModel(nn.Module):
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        with resolve_device(device):
+            self.estimator = StateEstimator(cfg, dtype=dtype)
+            self.quantizer = VectorQuantizer(cfg.state_num, 1)
+
+    @property
+    def device(self):
+        return self.quantizer.embedding.device
+
+    def init(self, seed=0):
+        """Seeded random parameters (flax's initializers: conv and linear
+        weights N(0, 1), biases 0, the scalar codebook U(0, 1)). Returns self."""
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (EqualConv2d, EqualLinear)):
+                    m.weight.normal_(0.0, 1.0, generator=g)
+                    if m.bias is not None:
+                        m.bias.zero_()
+            self.quantizer.embedding.uniform_(0.0, 1.0, generator=g)
+        return self
+
+    @torch.no_grad()
+    def estimate(self, z):
+        """Latents ``(B[, T], h, w, z_size)`` -> states ``(B[, T], state_size)``
+        in [0, 1]."""
+        return self.estimator(z)
+
+    @torch.no_grad()
+    def encode(self, z=None, state=None):
+        """Latents (or states) -> state tokens ``(B, T * state_size)``, one
+        token per coordinate."""
+        if state is None:
+            state = self.estimate(z)
+        _, idx = self.quantizer(state.float()[..., None])
+        return idx.reshape(idx.shape[0], -1)
+
+    def decode(self, state_code):
+        """State tokens -> state values of the same shape."""
+        return self.quantizer.embed_code(state_code)[..., 0]

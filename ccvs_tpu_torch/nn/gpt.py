@@ -1,7 +1,10 @@
 """Autoregressive latent transformer with a fixed-shape KV cache
-(counterpart of ``ccvs_tpu/nn/gpt.py``), for the plain frame-token stream.
+(counterpart of ``ccvs_tpu/nn/gpt.py``): the frame-token stream, with state
+tokens interleaved (or in front), and the ``[start][cond]`` prefix of the
+unconditional and point-to-point modes.
 
-Parameter names follow the flax modules (``tok_emb``, ``s_emb``, ``t_emb``,
+Parameter names follow the flax modules (``tok_emb``, ``state_tok_emb``,
+``start_tok_emb``, ``s_emb``, ``state_s_emb``, ``t_emb``,
 ``core.blocks.<layer>.{ln1, attn.{query, key, value, proj}, ln2, fc1, fc2}``,
 ``core.ln_f``, ``head``); the JAX package stacks the blocks along a leading
 layer axis, the port keeps one module per layer (see ``weights.py``).
@@ -27,30 +30,66 @@ from torch import nn
 
 from ccvs_tpu_torch.ops.attention import flash_decode_attention
 
+KIND_FRAME = 0
+KIND_STATE = 1
+
+
 @dataclass(frozen=True)
 class Schedule:
-    """Static layout of the token sequence: per position its spatial index
-    (into ``s_emb``) and temporal index (into ``t_emb``). The JAX package's
-    schedule also interleaves state tokens; the frame-only stream needs none."""
+    """Static layout of the body (frame and state tokens), as numpy arrays:
+    per position its ``kind`` (``KIND_FRAME`` or ``KIND_STATE``), spatial
+    index ``s_idx`` (into ``s_emb`` or ``state_s_emb``) and temporal index
+    ``t_idx`` (into ``t_emb``); ``frame_pos`` and ``state_pos`` are the
+    positions of each stream's tokens in order."""
 
+    kind: np.ndarray
     s_idx: np.ndarray
     t_idx: np.ndarray
+    frame_pos: np.ndarray
+    state_pos: np.ndarray
 
     @property
     def length(self) -> int:
-        return len(self.s_idx)
+        return len(self.kind)
 
 
-def build_schedule(cfg, n_frames):
-    """Layout of ``n_frames`` frames of ``cfg.size`` tokens."""
-    return Schedule(s_idx=np.tile(np.arange(cfg.size, dtype=np.int32), n_frames),
-                    t_idx=np.repeat(np.arange(n_frames, dtype=np.int32), cfg.size))
+def _schedule(kind, s_idx, t_idx):
+    kind = np.asarray(kind, np.int32)
+    return Schedule(kind=kind, s_idx=np.asarray(s_idx, np.int32),
+                    t_idx=np.asarray(t_idx, np.int32),
+                    frame_pos=np.nonzero(kind == KIND_FRAME)[0].astype(np.int32),
+                    state_pos=np.nonzero(kind == KIND_STATE)[0].astype(np.int32))
 
 
-def _infer_schedule(cfg, n_frame_tokens):
-    """Schedule of a ``n_frame_tokens``-token stream (last frame possibly cut)."""
-    full = build_schedule(cfg, -(-n_frame_tokens // cfg.size))
-    return Schedule(s_idx=full.s_idx[:n_frame_tokens], t_idx=full.t_idx[:n_frame_tokens])
+def build_schedule(cfg, n_frames, n_state_frames=None):
+    """Layout of ``n_frames`` frames: per frame ``state_size`` state tokens,
+    then ``size`` frame tokens; with ``state_front`` all state tokens first.
+    State tokens come for the first ``n_state_frames`` frames (default: all,
+    up to ``num_blocks``)."""
+    size, ss = cfg.size, cfg.state_size
+    if n_state_frames is None:
+        n_state_frames = min(n_frames, cfg.num_blocks) if ss > 0 else 0
+    state = [(KIND_STATE, r, f) for f in range(n_state_frames) for r in range(ss)]
+    frames = [[(KIND_FRAME, r, f) for r in range(size)] for f in range(n_frames)]
+    if ss > 0 and cfg.state_front:
+        rows = state + [x for frame in frames for x in frame]
+    else:
+        rows = []
+        for f, frame in enumerate(frames):
+            rows += state[f * ss:(f + 1) * ss] + frame
+    return _schedule(*zip(*rows)) if rows else _schedule([], [], [])
+
+
+def _infer_schedule(cfg, n_frame_tokens, n_state_tokens=0):
+    """Schedule of a ``n_frame_tokens``-token frame stream (last frame
+    possibly cut) beside ``n_state_tokens`` state tokens."""
+    ss = cfg.state_size
+    n_state_frames = min(n_state_tokens // ss, cfg.num_blocks) if ss > 0 else 0
+    full = build_schedule(cfg, -(-n_frame_tokens // cfg.size), n_state_frames)
+    # drop the frame positions past the stream's end
+    is_frame = full.kind == KIND_FRAME
+    keep = ~is_frame | (np.cumsum(is_frame) <= n_frame_tokens)
+    return _schedule(full.kind[keep], full.s_idx[keep], full.t_idx[keep])
 
 
 def _dense(layer, x):
@@ -171,44 +210,112 @@ def decode_step_fn(model, emb1, pos, cache):
 
 
 class GPT(nn.Module):
-    """Discrete-token GPT over the frame-token stream, with ``emb_mode="temporal"``
-    positional embeddings (spatial ``s_emb`` + temporal ``t_emb``)."""
+    """Discrete-token GPT with ``emb_mode="temporal"`` positional embeddings
+    (spatial ``s_emb`` + temporal ``t_emb``); state tokens have their own
+    vocabulary and spatial embedding (``state_tok_emb``, ``state_s_emb``).
+    The head spans both vocabularies."""
 
     def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.tok_emb = nn.Embedding(cfg.z_num, cfg.n_embd, dtype=dtype)
-        self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, cfg.n_embd, dtype=dtype))
-        self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, cfg.n_embd, dtype=dtype))
+        d = cfg.n_embd
+        self.tok_emb = nn.Embedding(cfg.z_num, d, dtype=dtype)
+        self.has_state = cfg.state_num > 0 and cfg.state_size > 0
+        if self.has_state:
+            self.state_tok_emb = nn.Embedding(cfg.state_num, d, dtype=dtype)
+        if cfg.use_start_token:
+            self.start_tok_emb = nn.Parameter(torch.zeros(1, d, dtype=dtype))
+        self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, d, dtype=dtype))
+        self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, d, dtype=dtype))
+        if cfg.state_size > 0:
+            self.state_s_emb = nn.Parameter(torch.zeros(1, cfg.state_size, d, dtype=dtype))
         self.core = GPTCore(cfg, dtype)
-        self.head = nn.Linear(cfg.n_embd, cfg.z_num, bias=False, dtype=dtype)
+        self.head = nn.Linear(d, max(cfg.z_num, cfg.state_num), bias=False, dtype=dtype)
 
     def reset_parameters(self, generator):
-        """Seeded init: linear and embedding weights N(0, 0.02), biases and
-        positional embeddings 0, LayerNorms 1 and 0."""
+        """Seeded init: linear and embedding weights N(0, 0.02), the start
+        token N(0, 1), biases and positional embeddings 0, LayerNorms 1 and 0."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, (nn.Linear, nn.Embedding)):
                     m.weight.normal_(0.0, 0.02, generator=generator)
                     if getattr(m, "bias", None) is not None:
                         m.bias.zero_()
+            if self.cfg.use_start_token:
+                self.start_tok_emb.normal_(0.0, 1.0, generator=generator)
 
-    def _frame_pos_emb(self, s_idx, t_idx):
-        return self.s_emb[0][s_idx] + self.t_emb[0][t_idx]
+    # ---------------- embeddings ----------------
+
+    def _frame_pos_emb(self, s_idx, t_idx, delta=None):
+        """Frame-token positional embedding; ``delta`` ``(B,)`` shifts the
+        temporal index per batch element (then ``(B, L, D)``)."""
+        t = t_idx if delta is None else t_idx[None, :] + delta[:, None]
+        return self.s_emb[0][s_idx] + self.t_emb[0][t]
+
+    def _state_pos_emb(self, s_idx, t_idx):
+        if torch.is_tensor(s_idx):
+            # a buffer's frame positions have spatial indices past the state's;
+            # their state embedding is computed and discarded
+            s_idx = s_idx.clamp_max(self.cfg.state_size - 1)
+        return self.state_s_emb[0][s_idx] + self.t_emb[0][t_idx]
 
     def _tok(self, tokens):
         return F.embedding(tokens, self.tok_emb.weight)
 
-    def forward(self, code, sched=None):
-        """Full causal forward over frame tokens ``code`` ``(B, n)`` -> logits
-        ``(B, n, V)``."""
+    def _index(self, a):
+        return torch.as_tensor(a, device=self.head.weight.device).long()
+
+    def _body_emb(self, code, state_code, sched):
+        """Merged body embedding: frame and state tokens interleaved by the
+        schedule."""
+        n = sched.length
+        src = np.zeros(n, np.int64)  # each position's index into its stream
+        src[sched.frame_pos] = np.arange(len(sched.frame_pos))
+        src[sched.state_pos] = np.arange(len(sched.state_pos))
+        s_idx, t_idx = self._index(sched.s_idx), self._index(sched.t_idx)
+        frame_tok = code[:, self._index(np.clip(src, 0, code.shape[1] - 1))]
+        emb = self._tok(frame_tok) + self._frame_pos_emb(s_idx, t_idx)[None]
+        if state_code is not None and len(sched.state_pos) > 0:
+            state_tok = state_code[:, self._index(np.clip(src, 0, state_code.shape[1] - 1))]
+            se = (F.embedding(state_tok, self.state_tok_emb.weight)
+                  + self._state_pos_emb(s_idx, t_idx)[None])
+            is_state = self._index(sched.kind == KIND_STATE).bool()
+            emb = torch.where(is_state[None, :, None], se, emb)
+        return emb
+
+    def _cond_emb(self, cond_code, delta=None):
+        """Conditioning tokens: frame tokens of frames 0, 1, ... shifted by
+        ``delta``."""
+        lc = cond_code.shape[1]
+        ar = torch.arange(lc, device=cond_code.device)
+        pe = self._frame_pos_emb(ar % self.cfg.size, ar // self.cfg.size, delta)
+        return self._tok(cond_code) + (pe[None] if delta is None else pe)
+
+    def _prefix_emb(self, b, cond_code=None, delta=None):
+        """The ``[start][cond]`` prefix ``(B, P, D)``, or None."""
+        parts = []
+        if self.cfg.use_start_token:
+            parts.append(self.start_tok_emb[None].expand(b, 1, -1))
+        if cond_code is not None and cond_code.shape[1] > 0:
+            parts.append(self._cond_emb(cond_code, delta))
+        return torch.cat(parts, dim=1) if parts else None
+
+    def prefix_len(self, cond_code=None):
+        return int(self.cfg.use_start_token) + (0 if cond_code is None else cond_code.shape[1])
+
+    def forward(self, code, state_code=None, cond_code=None, delta=None, sched=None):
+        """Full causal forward over the prefix and the body of frame tokens
+        ``code`` ``(B, n)`` (and state tokens ``state_code``) -> logits from
+        the start token (when there is one) on, ``(B, P' + body, V)``."""
         if sched is None:
-            sched = _infer_schedule(self.cfg, code.shape[1])
-        dev = code.device
-        pe = self._frame_pos_emb(torch.as_tensor(sched.s_idx, device=dev).long(),
-                                 torch.as_tensor(sched.t_idx, device=dev).long())
-        x = self.core(self._tok(code) + pe[None])
-        return self.head_apply(x)
+            sched = _infer_schedule(self.cfg, code.shape[1],
+                                    0 if state_code is None else state_code.shape[1])
+        emb = self._body_emb(code, state_code, sched)
+        prefix = self._prefix_emb(code.shape[0], cond_code, delta)
+        if prefix is not None:
+            emb = torch.cat([prefix, emb], dim=1)
+        t_cond = 0 if cond_code is None else cond_code.shape[1]
+        return self.head_apply(self.core(emb))[:, t_cond:]
 
     def init_cache(self, b, max_len, dtype=None):
         """Zero cache, its length rounded up to a multiple of 128."""
@@ -229,8 +336,26 @@ class GPT(nn.Module):
     def head_apply(self, x):
         return _dense(self.head, x)
 
-    def embed_one(self, token, s_idx, t_idx):
-        """Embedding of frame token(s) at schedule attributes: one position
-        (ints, ``token`` ``(B,)``) or a whole buffer (index tensors ``(L,)``,
-        ``token`` ``(B, L)``)."""
-        return self._tok(token.clamp_max(self.cfg.z_num - 1)) + self._frame_pos_emb(s_idx, t_idx)
+    def embed_one(self, token, s_idx, t_idx, kind=KIND_FRAME):
+        """Embedding of body token(s) at schedule attributes: one position
+        (``s_idx``, ``t_idx`` ints, ``token`` ``(B,)``) or a whole buffer
+        (index arrays or tensors ``(L,)``, ``token`` ``(B, L)``). ``kind`` is
+        one kind for every position, or an array ``(L,)`` of kinds. Each
+        token is clamped to its stream's vocabulary before the lookup."""
+        if not isinstance(s_idx, int):
+            s_idx, t_idx = self._index(s_idx), self._index(t_idx)
+        cfg = self.cfg
+
+        def frame():
+            return self._tok(token.clamp_max(cfg.z_num - 1)) + self._frame_pos_emb(s_idx, t_idx)
+
+        def state():
+            return (F.embedding(token.clamp_max(cfg.state_num - 1), self.state_tok_emb.weight)
+                    + self._state_pos_emb(s_idx, t_idx))
+
+        if not self.has_state:
+            return frame()
+        if np.ndim(kind) == 0:  # one kind, known on the host
+            return state() if kind == KIND_STATE else frame()
+        is_state = self._index(np.asarray(kind) == KIND_STATE).bool()
+        return torch.where(is_state[:, None], state(), frame())

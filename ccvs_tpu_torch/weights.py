@@ -8,7 +8,11 @@ read with numpy alone. Translation:
 - flax ``LayerNorm`` ``scale`` and ``Embed`` ``embedding`` -> ``weight``;
 - the GPT blocks, stacked by ``nn.scan`` under ``core/blocks/block`` with a
   leading layer axis, -> ``core.blocks.<layer>``;
-- conv weights are already in torch layout and load as they are.
+- conv weights are already in torch layout and load as they are;
+- raw parameters (``s_emb``, ``state_s_emb``, ``start_tok_emb``, a
+  codebook's ``embedding``) keep their names, so the state model's tree
+  (``estimator/...``, ``quantizer/embedding``) loads into ``StateModel`` as
+  it is.
 
 Every parameter of the module must be filled and every key must land, or
 loading raises.

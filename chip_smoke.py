@@ -6,29 +6,43 @@
 Phases, each printing its wall time:
 
 0. device: the card's name and power limit, torch and CUDA versions;
-1. build: both CUDA kernels (``ccvs_tpu_torch/csrc``), one ``nvcc`` process
-   per source, started together, with the registers, shared memory and spills
-   of each kernel;
+1. build: the three CUDA kernels (``ccvs_tpu_torch/csrc``), one ``nvcc``
+   process per source, started together, with the registers, shared memory
+   and spills of each kernel;
 2. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes (K2 with its position an int32 on the device, at positions
-   0, 63, 64, 511 and 1023, and once captured in a CUDA graph and replayed at
-   positions 0, 63, 511 and 1023), then timed (CUDA events, L2 flushed,
-   median; K1 at the encode shapes of both rollouts, K2 at positions 63, 511
-   and 1023) beside its plain version, a PyTorch library call that the port
-   never makes, and its bound (K1's against both the fp32 CUDA cores and its
-   own three TF32 tensor-core products);
+   paths' shapes (K2 with its position an int32 on the device, with caches of
+   1024 rows at positions 0, 63, 64, 511 and 1023, of 1152 at 0, 1023, 1055
+   and 1151, of 1280 at 0, 1151 and 1279, each also captured once in a CUDA
+   graph and replayed at those positions; K3 bit-equal to the CPU's at the
+   int8 decode step's products), then timed (CUDA events, L2 flushed,
+   median; K1 at the encode shapes of the rollouts and the state quantizer's,
+   K2 at positions 63, 511, 1023, 1151 and 1279, K3 at each product) beside
+   its plain version, a PyTorch library call that the port never makes
+   (K3: ``torch._int_mm`` alone and the bf16 step's ``F.linear``), and its
+   bound (K1's against both the fp32 CUDA cores and its own three TF32
+   tensor-core products);
 3. rollout: ``VideoGenerator.generate`` on the full-width BAIR-256 config in
    bf16 from a seeded init, batch 2, 16 frames, 1 context frame: one warm-up
    (its stages timed one by one) and one timed run, with every kernel's
-   launch count read around the timed run;
+   launch count set to 0 just before the timed run and read just after;
 4. kinetics: the same on the full-width Kinetics-600 config (64x64, 16384
    codes, 5 context frames, a 24-layer GPT over a 1280-token window), batch
-   2, 16 frames;
+   2, 24 frames: the window fills at frame 20 and slides 4 chunks of 64;
 5. profile: the device's busy share and largest kernels per stage, on parts
    of the BAIR rollout (``torch.profiler``), with the token stage early and
    late in the window;
-6. reference: a small fp32 configuration generated greedily on the GPU and on
-   the CPU (where the kernels' plain versions run) must agree.
+6. reference: small fp32 configurations generated greedily on the GPU and on
+   the CPU (where the kernels' plain versions run) must agree: frame
+   continuation, state-conditioned, point-to-point and unconditional tokens
+   equal and videos within 1e-3; int8 held to the CPU product by product
+   along the GPU's tokens (each product bit-equal on the same input, each
+   product's input within 1e-4 of its row's max), its video within 1e-3;
+7. modes: the full-width BAIR-256 state-conditioned, point-to-point,
+   unconditional and int8 rollouts, each run once with its launches counted
+   as in phase 3 and its output checked (states in [0, 1] and the context
+   frame's state tokens kept; the real end frame last, the end frame's
+   prefix and delta moving the first frame's tokens and its features the
+   decode; int8 logits of one decode step within 8 % of the bf16 step's).
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -43,7 +57,9 @@ import time
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
+PEAK_INT8_PER_S = 1979e12    # H100 SXM int8 on the tensor cores, dense
 BATCH, VID_LEN = 2, 16
+KINETICS_LEN = 24  # frames: past the 20 of the 1280-token window, so it slides
 
 
 def log(*parts):
@@ -172,10 +188,12 @@ def phase_kernels(records):
     g = torch.Generator(device="cuda").manual_seed(0)
     # K1 at the rollouts' shapes: the encode of 2 x 16 frames x 64 tokens and
     # the context re-encode (BAIR: 1024 codes of 512; Kinetics-600: 16384 of
-    # 256); timed at the encode shapes
+    # 256, and 2 x 24 frames), and the state quantizer's 2 x 16 frames x 2
+    # coordinates against 128 scalar codes; timed at the encode shapes
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, False),
-                           (2048, 256, 16384, True), (640, 256, 16384, False)):
+                           (2048, 256, 16384, True), (640, 256, 16384, False),
+                           (3072, 256, 16384, True), (64, 1, 128, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -205,72 +223,208 @@ def phase_kernels(records):
                                            "bound_by", "library_ms", "bound_fp32_cuda_cores_ms")},
         "shapes": shapes, "launches_by_rollout": {}}
 
-    # K2 at the GPT decode shape: q (2, 16, 64), caches (2, 16, 1024, 64), bf16,
-    # the position an int32 on the device, as the decode step gives it
-    b, nh, length, hd = 2, 16, 1024, 64
-    q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
-    kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
-    vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+    # K2 at the GPT decode shape: q (2, 16, 64), caches (2, 16, L, 64), bf16,
+    # the position an int32 on the device, as the decode step gives it. L 1024
+    # is the BAIR, p2p and int8 rollouts' cache, 1152 the state and
+    # unconditional ones' (one full 16 KB tile and a ragged one of 16 rows a
+    # CTA), 1280 the Kinetics-600 window's (a full tile and 32 rows)
+    b, nh, hd = 2, 16, 64
     pos_t = torch.zeros(1, dtype=torch.int32, device="cuda")
-    worst = 0.0
-    for pos in (0, 63, 64, 511, 1023):
-        pos_t.fill_(pos)
-        out = flash_decode_attention(q, kc, vc, pos_t)
-        worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"pos={pos}"))
-    # one launch captured in a CUDA graph serves every position
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = flash_decode_attention(q, kc, vc, pos_t)
-    for pos in (0, 63, 511, 1023):
-        pos_t.fill_(pos)
-        graph.replay()
-        worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"CUDA-graph replay pos={pos}"))
-    for pos in (63, 511, 1023):  # the range the rollout sweeps
-        pos_t.fill_(pos)
-        ms = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t))
-        plain = time_ms(lambda: flash_decode_plain(q, kc, vc, pos_t))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc[:, :, :pos + 1], vc[:, :, :pos + 1]))
-        live = pos + 1
-        bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * live * hd),
-                           4 * b * nh * live * hd, PEAK_FP32_PER_S)
-        log(f"K2 flash_decode pos={pos} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; {100 * bnd / ms:.1f}% of it)")
-    # what the timer shows for any launch, and K2 with its inputs in L2
-    floor = time_ms(lambda: pos_t.fill_(pos))
-    warm = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t), flush_l2=False)
-    log(f"K2 flash_decode pos={pos} bf16 with the caches in L2: {warm:.4f} ms; the same timer "
-        f"around a one-element fill_ launch: {floor:.4f} ms")
+    worst, shapes = 0.0, []
+    for length, checked, timed in ((1024, (0, 63, 64, 511, 1023), (63, 511, 1023)),
+                                   (1152, (0, 1023, 1055, 1151), (1151,)),
+                                   (1280, (0, 1151, 1279), (1279,))):
+        q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
+        kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+        vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+        for pos in checked:
+            pos_t.fill_(pos)
+            out = flash_decode_attention(q, kc, vc, pos_t)
+            worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"L={length} pos={pos}"))
+        # one launch captured in a CUDA graph serves every position
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = flash_decode_attention(q, kc, vc, pos_t)
+        for pos in checked:
+            pos_t.fill_(pos)
+            graph.replay()
+            worst = max(worst, check_flash_decode(out, q, kc, vc, pos,
+                                                  f"L={length} CUDA-graph replay pos={pos}"))
+        for pos in timed:
+            pos_t.fill_(pos)
+            ms = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t))
+            plain = time_ms(lambda: flash_decode_plain(q, kc, vc, pos_t))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc[:, :, :pos + 1], vc[:, :, :pos + 1]))
+            live = pos + 1
+            bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * live * hd),
+                               4 * b * nh * live * hd, PEAK_FP32_PER_S)
+            log(f"K2 flash_decode L={length} pos={pos} bf16: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
+                f"{100 * bnd / ms:.1f}% of it)")
+            shapes.append({"length": length, "pos": pos, "ms": ms, "plain_ms": plain,
+                           "library_ms": lib, "bound_ms": bnd, "bound_by": by})
+        if length == 1024:
+            # what the timer shows for any launch, and K2 with its inputs in L2
+            floor = time_ms(lambda: pos_t.fill_(pos))
+            warm = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t), flush_l2=False)
+            log(f"K2 flash_decode pos={pos} bf16 with the caches in L2: {warm:.4f} ms; the same "
+                f"timer around a one-element fill_ launch: {floor:.4f} ms")
+    # the record's numbers are those at L 1024, pos 1023; "shapes" has all
+    at_1023 = next(r for r in shapes if r["pos"] == 1023)
     records["flash_decode"] = {
         "name": "flash_decode", "route": "cuda", "source": "ccvs_tpu_torch/csrc/flash_decode.cu",
         "replaces": "ccvs_tpu/ops/attention_pallas.py:64", "launches": None,
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": lib, "launches_by_rollout": {}}
+        "max_abs_err": worst, **{key: at_1023[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                               "bound_by", "library_ms")},
+        "shapes": shapes, "launches_by_rollout": {}}
+    phase_int8_linear(records)
 
 
-def phase_rollout(records, card, cfg, n_ctx):
-    """Warm-up with its stages timed, then one timed ``generate`` with every
-    kernel's launch count read around it; returns the models, the clip and
-    the warm-up's tokens."""
+def phase_int8_linear(records):
+    """K3 (the int8 decode step's product with its activation quantization,
+    scaling and bias) bit-equal to its plain version on the CPU, and timed at
+    the BAIR decode step's shapes, B = 2, beside its plain version on the
+    card (the ``torch._int_mm`` route), ``torch._int_mm`` alone on
+    pre-quantized operands and the bf16 step's ``F.linear``."""
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.ops.int8_linear import div127, int8_linear, int8_linear_plain, int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    # on the card a division by a Python number is a multiplication by the
+    # rounded reciprocal: the scales the port divides out as the CPU does
+    a = torch.rand(2**20, device="cuda", generator=g) * 4
+    off = int(((a / 127.0) != div127(a)).sum())
+    log(f"int8 scales: a / 127.0 on the card differs from a / 127 rounded once in {off} of "
+        f"{a.numel()} fp32 values in [0, 4)")
+    shapes = []
+    for name, inner, out, dtype in (("q/k/v", 1024, 1024, torch.float32),
+                                    ("proj", 1024, 1024, torch.bfloat16),
+                                    ("fc1", 1024, 4096, torch.float32),
+                                    ("fc2", 4096, 1024, torch.float32),
+                                    ("head", 1024, 1024, torch.float32)):
+        x = torch.randn(BATCH, inner, device="cuda", generator=g).to(dtype)
+        x[1, :3] = torch.tensor([127.0, 0.5, -2.5])  # exact halves after scaling
+        w8 = torch.randint(-127, 128, (out, inner), device="cuda", generator=g, dtype=torch.int8)
+        scale = torch.rand(out, device="cuda", generator=g) * 1e-3 + 1e-4
+        bias = None if name == "head" else torch.randn(out, device="cuda", generator=g).to(dtype)
+        got = int8_linear(x, w8, scale, bias)
+        want = int8_linear_plain(x.cpu(), w8.cpu(), scale.cpu(),
+                                 None if bias is None else bias.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"int8_linear {name}: differs from the CPU's plain version by "
+                                 f"{float((got.cpu() - want).abs().max())}")
+        ms = time_ms(lambda: int8_linear(x, w8, scale, bias))
+        plain = time_ms(lambda: int8_linear_plain(x, w8, scale, bias))
+        x8 = torch.randint(-127, 128, (BATCH, inner), device="cuda", generator=g,
+                           dtype=torch.int8)
+        int_mm = time_ms(lambda: int8_matmul(x8, w8))
+        wb = (torch.randn(out, inner, device="cuda", generator=g) * 0.02).bfloat16()
+        xb, bb = x.bfloat16(), None if bias is None else bias.bfloat16()
+        lin = time_ms(lambda: F.linear(xb, wb, bb))
+        n_bytes = (x.element_size() * BATCH * inner + out * inner + 4 * out
+                   + (0 if bias is None else bias.element_size() * out) + 4 * BATCH * out)
+        bnd, by = bound_ms(n_bytes, 2 * BATCH * inner * out, PEAK_INT8_PER_S)
+        log(f"K3 int8_linear {name} x ({BATCH}, {inner}) {str(dtype)[6:]} x w8 ({out}, {inner}): "
+            f"bit-equal to the CPU; kernel {ms:.4f} ms, plain (_int_mm route) {plain:.4f} ms, "
+            f"_int_mm alone {int_mm:.4f} ms, bf16 F.linear {lin:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}; {100 * bnd / ms:.1f}% of it)")
+        shapes.append({"shape": name, "in": inner, "out": out, "ms": ms, "plain_ms": plain,
+                       "int_mm_ms": int_mm, "bf16_linear_ms": lin, "bound_ms": bnd,
+                       "bound_by": by})
+    # the record's numbers are fc1's, the largest weight
+    fc1 = next(r for r in shapes if r["shape"] == "fc1")
+    records["int8_linear"] = {
+        "name": "int8_linear", "route": "cuda", "source": "ccvs_tpu_torch/csrc/int8_linear.cu",
+        "replaces": "ccvs_tpu/nn/quantized.py:66", "launches": None, "max_abs_err": 0.0,
+        **{key: fc1[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shapes": shapes, "launches_by_rollout": {}}
+
+
+def build_models(cfg):
+    """The port's models of ``cfg`` in bf16 on the card from seeded inits (the
+    state model, in fp32 as the JAX package keeps it, where ``cfg`` conditions
+    on states)."""
     import torch
     from ccvs_tpu_torch.generate import VideoGenerator
-    from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
-    from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, TokenTransformer
 
     t0 = time.perf_counter()
     ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0)
     tr = TokenTransformer(cfg.gpt, dtype=torch.bfloat16).init(seed=1)
-    gen = VideoGenerator(cfg, ae, tr)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    vid = torch.rand(BATCH, VID_LEN, cfg.ae.max_dim, cfg.ae.max_dim, 3, device="cuda",
-                     generator=g) * 2 - 1
+    sm = StateModel(cfg.state).init(seed=7) if cfg.gpt.state else None
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in ae.parameters()) + sum(p.numel() for p in tr.parameters())
+    n_params = sum(p.numel() for m in (ae, tr, sm) if m is not None for p in m.parameters())
     log(f"{cfg.name} init: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.1f} s")
+    return ae, tr, VideoGenerator(cfg, ae, tr, state_model=sm)
 
-    # warm-up: the calls generate() makes, one by one, each timed
+
+def clip(cfg, vid_len):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    return torch.rand(BATCH, vid_len, cfg.ae.max_dim, cfg.ae.max_dim, 3, device="cuda",
+                      generator=g) * 2 - 1
+
+
+def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps):
+    """One ``generate`` on the card with every kernel's count set to 0 just
+    before it and read just after: K1 must have launched ``k1`` times, K2
+    once a layer in each of ``k2_steps`` decode steps, and K3 (with
+    ``serve_int8``) once a dense product in each of them (6 a layer and the
+    head), else never. Returns the output."""
+    import torch
+    from ccvs_tpu_torch.ops.attention import flash_decode_attention
+    from ccvs_tpu_torch.ops.int8_linear import int8_linear
+    from ccvs_tpu_torch.ops.vq import vq_indices
+
+    vid_len = vid.shape[1]
+    n_layer = cfg.gpt.n_layer
+    want = {"vq_argmin": k1, "flash_decode": n_layer * k2_steps,
+            "int8_linear": (6 * n_layer + 1) * k2_steps if cfg.gpt.serve_int8 else 0}
+    wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
+                "int8_linear": int8_linear}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = gen.generate(vid, torch.Generator(device="cuda").manual_seed(4), rec=False,
+                       n_ctx_frames=n_ctx)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    fake = out["fake"]
+    assert fake.is_cuda, "fake video is not on the GPU"
+    assert fake.shape == (BATCH, vid_len, cfg.ae.max_dim, cfg.ae.max_dim, 3), fake.shape
+    assert bool(torch.isfinite(fake).all()), "fake video has non-finite values"
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: launches {launches}, expected {want} (K1 {k1}; "
+                             f"{k2_steps} decode steps of {n_layer} layers)")
+    for name, n in launches.items():
+        if records[name]["launches"] is None and n:  # the first rollout that ran it
+            records[name]["launches"] = n
+        records[name]["launches_by_rollout"][cfg.name] = n
+    # generated frames: past the context, and before the real end frame in p2p
+    frames = BATCH * (vid_len - n_ctx - int(cfg.gpt.p2p))
+    log(f"{cfg.name} rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} "
+        f"frames/s (batch {BATCH}, {vid_len} frames, {n_ctx} context), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, on {card}")
+    return out
+
+
+def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=None):
+    """Warm-up with its stages timed, then one timed ``generate`` with every
+    kernel's launch count read around it (default K2 steps: the tokens past
+    the context, all in one window); returns the models, the clip and the
+    warm-up's tokens."""
+    import torch
+
+    ae, tr, gen = build_models(cfg)
+    vid = clip(cfg, vid_len)
     size = cfg.ae.tokens_per_frame
+    # warm-up: the calls generate() makes, one by one, each timed
     stages = {}
     t0 = time.perf_counter()
     enc = ae.encode(vid)
@@ -278,44 +432,147 @@ def phase_rollout(records, card, cfg, n_ctx):
     t0 = time.perf_counter()
     ctx_code = enc["code"].reshape(BATCH, -1)[:, :n_ctx * size]
     code = tr.generate(ctx_code, torch.Generator(device="cuda").manual_seed(3),
-                       total_len=VID_LEN * size)["code"]
+                       total_len=vid_len * size)["code"]
     stages["tokens"] = _synced_since(t0)
     t0 = time.perf_counter()
-    ae.decode_video(code.reshape(BATCH, VID_LEN, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
+    ae.decode_video(code.reshape(BATCH, vid_len, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
     stages["decode"] = _synced_since(t0)
     log(f"{cfg.name} warm-up rollout by stage: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; total {sum(stages.values()):.3f} s")
-
-    vq_indices.launches = 0
-    flash_decode_attention.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = gen.generate(vid, torch.Generator(device="cuda").manual_seed(4), rec=False,
-                       n_ctx_frames=n_ctx)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"vq_argmin": vq_indices.launches, "flash_decode": flash_decode_attention.launches}
-
-    fake = out["fake"]
-    assert fake.is_cuda, "fake video is not on the GPU"
-    assert fake.shape == (BATCH, VID_LEN, cfg.ae.max_dim, cfg.ae.max_dim, 3), fake.shape
-    assert bool(torch.isfinite(fake).all()), "fake video has non-finite values"
-    decode_steps = (VID_LEN - n_ctx) * size
     # K1: the encode of the clip and the re-encode of its context frames
-    assert launches["vq_argmin"] == 2, launches
-    assert launches["flash_decode"] == cfg.gpt.n_layer * decode_steps, (
-        f"flash_decode launched {launches['flash_decode']} times, expected "
-        f"{cfg.gpt.n_layer} layers x {decode_steps} decode steps")
-    for name, n in launches.items():
-        if records[name]["launches"] is None:  # the record's count is the first rollout's
-            records[name]["launches"] = n
-        records[name]["launches_by_rollout"][cfg.name] = n
-    frames = BATCH * (VID_LEN - n_ctx)
-    log(f"{cfg.name} rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} "
-        f"frames/s (batch {BATCH}, {VID_LEN} frames, {n_ctx} context), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, on {card}")
+    run_path(records, card, cfg, gen, vid, n_ctx, k1,
+             (vid_len - n_ctx) * size if k2_steps is None else k2_steps)
     return ae, tr, vid, code
+
+
+def check_p2p(cfg, gen, vid, out):
+    """What point-to-point changes, at the width of ``cfg`` (``generate()``
+    itself appends the real end frame, so the last frame shows nothing):
+    the end frame's token prefix and its ``delta`` reach the sampling (the
+    first generated frame, sampled from one seed, changes when ``delta`` is
+    one less or each prefix token is another; run after the rollout, with
+    seeded positional embeddings), and the end frame's features
+    reach the decode (the rollout's first generated frame is the decode with
+    them, nearer than the decode without them)."""
+    import torch
+
+    ae, tr = gen.ae, gen.transformer
+    b, t = vid.shape[:2]
+    size = cfg.ae.tokens_per_frame
+    enc = ae.encode(vid)
+    code_all = enc["code"].reshape(b, -1)
+    ctx = code_all[:, :size]
+    # the seeded init zeroes the positional embeddings, as the JAX package's
+    # does, and then no delta could show: give them seeded values first
+    g = torch.Generator(device=vid.device).manual_seed(9)
+    with torch.no_grad():
+        for emb in (tr.model.s_emb, tr.model.t_emb):
+            emb.copy_(torch.randn(emb.shape, generator=g, device=vid.device) * 0.02)
+    first = {}
+    end = code_all[:, -size:]
+    # a seeded random autoencoder maps noise frames to nearly one code, so
+    # another frame's tokens are no other prefix: each token moved by one is
+    for name, cond, delta in (("end frame, delta T-1", end, t - 1),
+                              ("end frame, delta T-2", end, t - 2),
+                              ("tokens + 1, delta T-1", (end + 1) % cfg.gpt.z_num, t - 1)):
+        first[name] = tr.generate(
+            ctx, torch.Generator(device=vid.device).manual_seed(8), cond_code=cond,
+            delta=torch.full((b,), delta, dtype=torch.long, device=vid.device),
+            total_len=3 * size)["code"][:, size:2 * size]
+    ref = first.pop("end frame, delta T-1")
+    moved = {name: float((c != ref).float().mean()) for name, c in first.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"p2p: the first generated frame does not follow the prefix: {moved}")
+    codes = out["code"][:, :2 * size].reshape(b, 2, size)
+    inter = [f[:, -1] for f in enc["inter"]]
+    err = {}
+    for name, cond_inter in (("with", inter), ("without", None)):
+        dec = ae.decode_video(codes, ctx_frames=vid[:, :1], n_ctx=1, cond_inter=cond_inter)
+        err[name] = float((dec[:, 1].float() - out["fake"][:, 1].float()).abs().max())
+    log(f"{cfg.name}: first generated frame's tokens changed in {moved} of places (the prefix "
+        f"and delta reach the sampling); its pixels differ from a decode with the end frame's "
+        f"features by {err['with']:.3g}, without them by {err['without']:.3g}")
+    if not err["with"] < err["without"]:
+        raise AssertionError(f"p2p: the rollout's decode does not use the end frame's features "
+                             f"({err})")
+
+
+def phase_modes(records, card):
+    """The controllable BAIR-256 modes at full width, each run once on the
+    card (no warm-up), its launches asserted and its output checked."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import (bairhd_config, bairhd_p2p_config, bairhd_state_config,
+                                       bairhd_unc_config)
+    from ccvs_tpu_torch.nn.gpt import cache_to_layers, decode_step_fn
+    from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
+
+    size = 64  # tokens a frame in every BAIR preset
+    # state: 2 state tokens before each frame's 64 in a 1056-token window;
+    # 990 decode steps past the context frame's 66 tokens. K1: the encode,
+    # the state quantizer, the context re-encode
+    cfg = bairhd_state_config()
+    _, _, gen = build_models(cfg)
+    vid = clip(cfg, VID_LEN)
+    out = run_path(records, card, cfg, gen, vid, 1, 3, VID_LEN * (size + 2) - (size + 2))
+    fs = out["fake_state"]
+    if fs.shape != (BATCH, VID_LEN, 2) or not bool(((fs >= 0) & (fs <= 1)).all()):
+        raise AssertionError(f"fake_state: shape {tuple(fs.shape)}, range "
+                             f"[{float(fs.min())}, {float(fs.max())}] (expected [0, 1])")
+    real = gen.state_model.encode(state=out["state"])
+    if not torch.equal(out["state_code"][:, :2], real[:, :2]):
+        raise AssertionError("state: the context frame's state tokens were not kept")
+    log(f"{cfg.name}: fake_state {tuple(fs.shape)} in [{float(fs.min()):.4f}, "
+        f"{float(fs.max()):.4f}], the context frame's state tokens kept")
+    del gen
+
+    # p2p: the end frame's 64 tokens are a prefix; 15 frames of 64 in the
+    # remaining 960, 896 decode steps past the context frame
+    cfg = bairhd_p2p_config()
+    _, _, gen = build_models(cfg)
+    vid = clip(cfg, VID_LEN)
+    out = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 2) * size)
+    if not torch.equal(out["fake"][:, -1], vid[:, -1].to(out["fake"].dtype)):
+        raise AssertionError("p2p: the last frame is not the real end frame")
+    log(f"{cfg.name}: the last frame is the real end frame")
+    check_p2p(cfg, gen, vid, out)
+    del gen
+
+    # unconditional: a start token and no context frame; 1024 decode steps
+    cfg = bairhd_unc_config()
+    _, _, gen = build_models(cfg)
+    run_path(records, card, cfg, gen, clip(cfg, VID_LEN), 0, 1, VID_LEN * size)
+    del gen
+
+    # int8: bairhd with serve_int8; 960 decode steps
+    base = bairhd_config()
+    cfg = dataclasses.replace(base, name="bairhd_int8",
+                              gpt=dataclasses.replace(base.gpt, serve_int8=True))
+    ae, tr, gen = build_models(cfg)
+    vid = clip(cfg, VID_LEN)
+    out = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 1) * size)
+    # one decode step at a filled cache (1023 tokens), int8 against bf16
+    model = tr.model
+    code = out["code"]
+    pos = VID_LEN * size - 1
+    with torch.no_grad():
+        cache = model.init_cache(BATCH, pos + 1)
+        s_idx = torch.arange(pos, device="cuda") % size
+        model.prefill(model.embed_one(code[:, :pos], s_idx, torch.arange(pos, device="cuda") // size),
+                      cache)
+        cache = cache_to_layers(cache)
+        emb1 = model.embed_one(code[:, pos], pos % size, pos // size)[:, None]
+        pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+        ref = decode_step_fn(model, emb1, pos_t, cache).float()
+        got = decode_step_fn_int8(model, quantize_gpt_int8(model), emb1, pos_t, cache).float()
+    rel = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"{cfg.name}: one decode step at position {pos}: int8 logits within {rel:.4f} of the "
+        f"bf16 step's (max |diff| / max |ref|, limit 0.08); argmax agreement {agree:.2f}")
+    if not rel < 0.08:
+        raise AssertionError(f"int8 decode step: {rel} >= 0.08 of the bf16 step's logits")
 
 
 def device_profile(fn):
@@ -377,42 +634,170 @@ def phase_profile(ae, tr, vid, code):
                 f"{t / n * 1e6:.2f} us each")
 
 
-def phase_reference():
-    """Small fp32 config, greedy: the GPU path (kernels) against the CPU path
-    (the kernels' plain versions, which the CPU tests hold against ccvs_tpu)."""
+INT8_INPUT_TOL = 1e-4  # of a row's largest magnitude; an int8 step is 1/127 of it
+
+
+def int8_lockstep(models, code, n0):
+    """The int8 decode step on the card held to the CPU's along the GPU's
+    greedy tokens ``code`` from ``n0`` given ones, product by product. Both
+    devices quantize the same weights (``w8`` and scales bit-equal); the CPU
+    starts from the card's cache after the prefill and steps in lockstep,
+    each of its products replaced by the card's. Then:
+
+    - each product on the card (K3) is bit-equal to the CPU's plain int8
+      product of the card's own input: the same int8 activations, int32
+      sums, scaling and bias;
+    - each product's input on the card (the LayerNorms, K2's attention, the
+      GELU, the residual stream) is within ``INT8_INPUT_TOL`` of its row's
+      largest magnitude of the CPU's own input from the same state;
+    - each GPU token is the argmax of the card's logits.
+
+    Returns (products checked, the worst input difference)."""
     import torch
-    from ccvs_tpu_torch.config import AutoencoderConfig, Config, TransformerConfig
+    from ccvs_tpu_torch.nn import quantized
+    from ccvs_tpu_torch.nn.gpt import cache_to_layers
+
+    gm, cm = models["cuda"][1].model, models["cpu"][1].model
+    qg, qc = quantized.quantize_gpt_int8(gm), quantized.quantize_gpt_int8(cm)
+
+    def leaves(q):
+        return [t for layer in q["layers"] for group in layer.values() for w in group.values()
+                for t in w.values()] + list(q["head"].values())
+
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(leaves(qg), leaves(qc))):
+        raise AssertionError("reference int8: w8 or scales differ between the card and the CPU")
+    dot = quantized._dot_int8
+    products, state = [], {"n": 0, "worst": 0.0}
+
+    def on_card(x, qw, bias=None):
+        out = dot(x, qw, bias)
+        products.append((x, out))
+        return out
+
+    def on_cpu(x, qw, bias=None):
+        if not products:
+            raise AssertionError("reference int8: the CPU made more products than the card")
+        xg, og = (t.cpu() for t in products.pop(0))
+        if not torch.equal(og, dot(xg, qw, bias)):
+            raise AssertionError(f"reference int8: product {state['n']} on the card differs "
+                                 "from the CPU's int8 product of the same input")
+        ref = x.float()
+        diff = (xg.float() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
+        state["n"] += 1
+        state["worst"] = max(state["worst"], float(diff.max()))
+        return og
+
+    size, length, dev = gm.cfg.size, code.shape[1], code.device
+    ar = torch.arange(length, device=dev)
+    buf = torch.zeros_like(code)  # the prefill of generate(): zeros past the given tokens
+    buf[:, :n0] = code[:, :n0]
+    try:
+        with torch.no_grad():
+            first, cache = gm.prefill(gm.embed_one(buf, ar % size, ar // size),
+                                      gm.init_cache(code.shape[0], length))
+            cache_g = cache_to_layers(cache)
+            cache_c = tuple(tuple(t.cpu() for t in side) for side in cache_g)
+            logits = first[:, n0 - 1]
+            for j in range(n0, length):
+                if not torch.equal(logits.argmax(-1), code[:, j]):
+                    raise AssertionError(f"reference int8: token {j} is not the argmax of the "
+                                         "card's logits")
+                if j == length - 1:
+                    break
+                tok = code[:, j]
+                pos = torch.full((1,), j, dtype=torch.int32, device=dev)
+                quantized._dot_int8 = on_card
+                logits = quantized.decode_step_fn_int8(
+                    gm, qg, gm.embed_one(tok, j % size, j // size)[:, None], pos, cache_g)
+                quantized._dot_int8 = on_cpu
+                quantized.decode_step_fn_int8(
+                    cm, qc, cm.embed_one(tok.cpu(), j % size, j // size)[:, None], j, cache_c)
+                quantized._dot_int8 = dot
+                if products:
+                    raise AssertionError("reference int8: the devices made different products")
+    finally:
+        quantized._dot_int8 = dot
+    if not state["worst"] <= INT8_INPUT_TOL:
+        raise AssertionError(f"reference int8: a product's input differs by {state['worst']} of "
+                             f"its row's max between the card and the CPU (> {INT8_INPUT_TOL})")
+    return state["n"], state["worst"]
+
+
+def phase_reference():
+    """Small fp32 configs, greedy: the GPU path (kernels) against the CPU path
+    (the kernels' plain versions, which the CPU tests hold against ccvs_tpu),
+    for frame continuation and the state, p2p, unconditional and int8 modes."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import AutoencoderConfig, Config, StateConfig, TransformerConfig
     from ccvs_tpu_torch.generate import VideoGenerator
-    from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, TokenTransformer
 
     ae_cfg = AutoencoderConfig(necf=16, necf_mult=(1, 1, 2, 2), z_size=16, z_num=64,
                                z_shape=(4, 4), max_dim=32, skip_memory=3,
                                skip_context=(1, 2, 3))
-    gpt_cfg = TransformerConfig(z_num=64, z_len=64, num_blocks=4, cond_len=16, n_layer=2,
-                                n_head=2, n_embd=128, z_shape=(4, 4), top_k=1)
-    cfg = Config(ae=ae_cfg, gpt=gpt_cfg)
+    base = TransformerConfig(z_num=64, z_len=64, z_chunk=16, num_blocks=4, cond_len=16,
+                             n_layer=2, n_head=2, n_embd=128, z_shape=(4, 4), top_k=1,
+                             top_k_state=1)
+    state_cfg = StateConfig(z_size=16, z_shape=(4, 4), state_hsize=8, state_size=2, state_num=8)
+    modes = {  # name: (transformer config, context frames)
+        "frame": (base, 1),
+        "state": (dataclasses.replace(base, z_len=72, z_chunk=18, state=True, state_num=8,
+                                      state_size=2, sample_state=True), 1),
+        "p2p": (dataclasses.replace(base, p2p=True), 1),
+        "unconditional": (dataclasses.replace(base, use_start_token=True, cond_len=0), 0),
+        "int8": (dataclasses.replace(base, serve_int8=True), 1),
+    }
     vid = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
     # one set of weights for both devices (the two generators' streams differ)
     ae_cpu = FrameAutoencoder(ae_cfg, dtype=torch.float32, device="cpu").init(seed=0)
-    tr_cpu = TokenTransformer(gpt_cfg, dtype=torch.float32, device="cpu").init(seed=1)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        ae = FrameAutoencoder(ae_cfg, dtype=torch.float32, device=dev)
-        ae.load_state_dict(ae_cpu.state_dict())
-        tr = TokenTransformer(gpt_cfg, dtype=torch.float32, device=dev)
-        tr.load_state_dict(tr_cpu.state_dict())
-        gen = VideoGenerator(cfg, ae, tr)
-        outs[dev] = gen.generate(vid.to(dev), torch.Generator(device=dev).manual_seed(0),
-                                 rec=True, n_ctx_frames=1)
-    gpu, cpu = outs["cuda"], outs["cpu"]
-    assert gpu["fake"].is_cuda
-    if not torch.equal(gpu["code"].cpu(), cpu["code"]):
-        raise AssertionError("greedy tokens differ between the GPU and the CPU path")
-    for key in ("fake", "rec"):
-        err = float((gpu[key].cpu() - cpu[key]).abs().max())
-        log(f"reference: {key} max abs difference GPU vs CPU {err:.3g} (tolerance 1e-3)")
-        if not err <= 1e-3:
-            raise AssertionError(f"{key}: GPU and CPU differ by {err} > 1e-3")
+    sm_cpu = StateModel(state_cfg, device="cpu").init(seed=2)
+    for name, (gpt_cfg, n_ctx) in modes.items():
+        cfg = Config(ae=ae_cfg, gpt=gpt_cfg, state=state_cfg)
+        tr_cpu = TokenTransformer(gpt_cfg, dtype=torch.float32, device="cpu").init(seed=1)
+        outs, models = {}, {}
+        for dev in ("cuda", "cpu"):
+            ae = FrameAutoencoder(ae_cfg, dtype=torch.float32, device=dev)
+            ae.load_state_dict(ae_cpu.state_dict())
+            tr = TokenTransformer(gpt_cfg, dtype=torch.float32, device=dev)
+            tr.load_state_dict(tr_cpu.state_dict())
+            sm = None
+            if gpt_cfg.state:
+                sm = StateModel(state_cfg, device=dev)
+                sm.load_state_dict(sm_cpu.state_dict())
+            gen = VideoGenerator(cfg, ae, tr, state_model=sm)
+            outs[dev] = gen.generate(vid.to(dev), torch.Generator(device=dev).manual_seed(0),
+                                     rec=True, n_ctx_frames=n_ctx)
+            models[dev] = ae, tr
+        gpu, cpu = outs["cuda"], outs["cpu"]
+        assert gpu["fake"].is_cuda
+        if gpt_cfg.serve_int8:
+            # int8 rounds every activation, so an ulp of fp32 difference
+            # upstream can move one int8 step and tip a greedy choice: the
+            # step is held to the CPU's product by product instead, along
+            # the GPU's tokens, and the CPU decodes those tokens
+            n, worst = int8_lockstep(models, gpu["code"], n_ctx * gpt_cfg.size)
+            same = int((gpu["code"].cpu() == cpu["code"]).all(-1).sum())
+            log(f"reference int8: {n} products on the card bit-equal to the CPU's of the same "
+                f"input; inputs within {worst:.3g} of their row's max of the CPU's (tolerance "
+                f"{INT8_INPUT_TOL}); free-running greedy tokens equal in {same} of 2 clips")
+            ae = models["cpu"][0]
+            cpu["code"] = gpu["code"].cpu()
+            cpu["fake"] = ae.decode_video(cpu["code"].reshape(2, -1, gpt_cfg.size),
+                                          ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
+        for key in ("code", "state_code"):
+            if key in cpu and not torch.equal(gpu[key].cpu(), cpu[key]):
+                raise AssertionError(f"reference {name}: greedy {key} differs between the GPU "
+                                     "and the CPU path")
+        for key in ("fake", "rec", "state", "fake_state"):
+            if key not in cpu:
+                continue
+            err = float((gpu[key].cpu() - cpu[key]).abs().max())
+            log(f"reference {name}: {key} max abs difference GPU vs CPU {err:.3g} "
+                "(tolerance 1e-3)")
+            if not err <= 1e-3:
+                raise AssertionError(f"reference {name} {key}: GPU and CPU differ by {err} > 1e-3")
 
 
 def main():
@@ -446,12 +831,17 @@ def main():
     with phase("3 rollout"):
         models = phase_rollout(records, card, bairhd_config(), n_ctx=1)
     with phase("4 kinetics"):
-        # 5 context frames: cond_len 320 / 64 tokens a frame
-        phase_rollout(records, card, kinetics_config(), n_ctx=5)
+        # 24 frames, 5 context frames (cond_len 320 / 64 tokens a frame): 960
+        # decode steps fill the 1280-token window, then it slides 4 chunks of 64
+        phase_rollout(records, card, kinetics_config(), n_ctx=5, vid_len=KINETICS_LEN,
+                      k2_steps=(1280 - 320) + (KINETICS_LEN - 20) * 64)
     with phase("5 profile"):
         phase_profile(*models)
+    del models
     with phase("6 reference"):
         phase_reference()
+    with phase("7 modes"):
+        phase_modes(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -104,7 +104,9 @@ def test_generate_bf16_is_finite(pair):
     assert bool(torch.isfinite(out["fake"]).all())
 
 
-@pytest.mark.parametrize("preset", ["bairhd_config", "kinetics_config", "ucf101_config"])
+@pytest.mark.parametrize("preset", ["bairhd_config", "kinetics_config", "ucf101_config",
+                                    "bairhd_state_config", "bairhd_p2p_config",
+                                    "bairhd_unc_config", "kinetics_p2p_config"])
 def test_presets_match_ccvs_tpu(preset):
     """The port's presets equal the JAX package's on every field the port
     has (``port_config`` keeps the shared ones)."""
@@ -112,6 +114,7 @@ def test_presets_match_ccvs_tpu(preset):
     assert got.name == want.name
     assert got.ae == port_config(want.ae)
     assert got.gpt == port_config(want.gpt)
+    assert got.state == port_config(want.state)
 
 
 def test_port_imports_neither_jax_nor_ccvs_tpu():

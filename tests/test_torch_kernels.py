@@ -12,7 +12,9 @@ import torch
 from ccvs_tpu_torch.config import AutoencoderConfig, Config, TransformerConfig
 from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+from ccvs_tpu_torch.nn.quantized import int8_matmul
 from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
+from ccvs_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
 from ccvs_tpu_torch.ops.vq import vq_indices, vq_indices_plain
 
 
@@ -27,11 +29,13 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,d", [(2048, 1024, 512), (77, 1000, 40), (2048, 16384, 256),
-                                   (640, 16384, 256), (128, 1024, 512)])
+                                   (640, 16384, 256), (128, 1024, 512), (64, 128, 1),
+                                   (3072, 16384, 256)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
     """K1 on the card: indices equal to the plain version's, near-ties aside.
-    The shapes of both rollouts: BAIR's encode (2048) and context re-encode
-    (128), Kinetics-600's (2048 and 640), and a ragged one."""
+    The shapes of the rollouts: BAIR's encode (2048) and context re-encode
+    (128), Kinetics-600's (2048 and 640, and 3072 for 24 frames), the state
+    quantizer's scalar codebook (depth 1, 128 codes), and a ragged one."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -133,14 +137,16 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, rel, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("length", [128, 1024, 2048])
+@pytest.mark.parametrize("length", [128, 1024, 2048, 1152, 1280])
 @pytest.mark.parametrize("dtype,rel,tol", [(torch.bfloat16, 2**-7, 2e-2),
                                            (torch.float32, 0.0, 1e-5)])
 def test_flash_decode_kernel_device_pos(cuda, dtype, rel, tol, length):
     """``pos`` as an int32 device tensor of shape (1,) or (): one launch per
     call, the plain version's result (tolerances as above) on both sides of
     each CTA's part and at the ends, and ``pos >= L`` clamped to ``L - 1``.
-    L 2048 walks two tiles per CTA in bf16, L 1024 two in fp32."""
+    L 2048 walks two tiles per CTA in bf16, L 1024 two in fp32; L 1152 (the
+    state and unconditional caches) a full tile and a ragged one of 16 rows
+    in bf16, L 1280 (the Kinetics-600 window) one of 32."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, 16, 64, device=cuda, generator=g).to(dtype)
     k = torch.randn(2, 16, length, 64, device=cuda, generator=g).to(dtype)
@@ -203,3 +209,51 @@ def test_generate_on_gpu_matches_cpu(cuda):
     assert got["fake"].is_cuda
     assert torch.equal(got["code"].cpu(), want["code"])
     assert float((got["fake"].cpu() - want["fake"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,inner,out", [(2, 1024, 1024), (2, 4096, 1024), (2, 1024, 16384),
+                                            (32, 1024, 4096)])
+def test_int8_matmul_on_card_is_exact(cuda, rows, inner, out):
+    """The int8 product of the int8 decode step on the card (``_int_mm``,
+    rows padded past 16) equals the CPU's exact one, also where sums pass
+    2^24 (all 127: 127^2 x 4096 = 6.6e7)."""
+    g = torch.Generator().manual_seed(5)
+    x8 = torch.randint(-127, 128, (rows, inner), generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (out, inner), generator=g, dtype=torch.int8)
+    x8[0], w8[0] = 127, 127
+    want = int8_matmul(x8, w8)
+    got = int8_matmul(x8.to(cuda), w8.to(cuda))
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (rows, out)
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0, 0]) == 127 * 127 * inner
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,inner,out,dtype,with_bias", [
+    (2, 1024, 1024, torch.float32, True), (2, 1024, 4096, torch.float32, True),
+    (2, 4096, 1024, torch.float32, True), (2, 1024, 1024, torch.bfloat16, True),
+    (2, 1024, 16384, torch.float32, False), (11, 1024, 512, torch.float32, True)])
+def test_int8_linear_kernel_matches_plain(cuda, rows, inner, out, dtype, with_bias):
+    """K3 on the card bit-equal to its plain version on the CPU: the decode
+    step's products (q/k/v/proj, fc1, fc2, the bf16 attention output into
+    proj, the head), exact halves in x, an odd sum past 2^24, and 11 rows
+    (two launches of at most 8)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(rows, inner, generator=g)
+    x[0, :4] = torch.tensor([127.0, 0.5, 2.5, -1.5])
+    x[0, 4:] = x[0, 4:].clamp(-1, 1)
+    x[1] = 1.0
+    x[1, 0] = 0.5
+    x = x.to(dtype)
+    w8 = torch.randint(-127, 128, (out, inner), generator=g, dtype=torch.int8)
+    w8[0] = 127
+    scale = torch.rand(out, generator=g) * 1e-3 + 1e-4
+    bias = torch.randn(out, generator=g).to(dtype) if with_bias else None
+    want = int8_linear_plain(x, w8, scale, bias)
+    before = int8_linear.launches
+    got = int8_linear(x.to(cuda), w8.to(cuda), scale.to(cuda),
+                      None if bias is None else bias.to(cuda))
+    assert int8_linear.launches - before == -(-rows // 8)
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == (rows, out)
+    assert torch.equal(got.cpu(), want)

@@ -61,7 +61,8 @@ def smooth_clip(batch, frames, size, seed=0):
 def port_config(cfg):
     """The port's counterpart of a ccvs_tpu config dataclass (shared fields)."""
     cls = {jcfg.AutoencoderConfig: tcfg.AutoencoderConfig,
-           jcfg.TransformerConfig: tcfg.TransformerConfig}[type(cfg)]
+           jcfg.TransformerConfig: tcfg.TransformerConfig,
+           jcfg.StateConfig: tcfg.StateConfig}[type(cfg)]
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                   if f.name in names})
