@@ -1,18 +1,108 @@
 """Configuration of the port: its own copy of the parts of
-``ccvs_tpu/config.py`` that the serving paths read (the autoencoder,
-transformer and state groups, and the BAIR-256, Kinetics-600 and UCF-101
-presets with their state-conditioned, point-to-point and unconditional
-variants, ``config.py:470-640`` there).
+``ccvs_tpu/config.py`` that the serving paths read (the data, autoencoder,
+transformer, state and STFT groups, and every preset: BAIR-256 with its
+state-conditioned, point-to-point and unconditional variants, Kinetics-600,
+UCF-101 and the audio-conditioned drums, ``config.py:470-696`` there).
 
 Fields keep the JAX package's names and defaults. Only the fields the serving
-paths read are here: the options no preset sets (``no_corr``, ``skip_rgb``,
-``keep_first``, ...), the class-label, audio, deblurring and layout modes,
-beam search and the training options come with the slices that need them.
+paths read are here, and the data group whole: the autoencoder options no
+preset sets (``no_corr``, ``skip_rgb``, ``keep_first``, ...), layouts,
+``emb_mode`` other than ``"temporal"`` and the training options come with the
+slices that need them.
 """
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Base and data options (reference ``options.py:34-155``), copied whole;
+    serving reads ``vid_len`` (:meth:`VideoGenerator.generate_from_image`)."""
+
+    name: str = "experiment"
+    dataset: str = "bairhd"
+    dataroot: str = "datasets/bairhd"
+    phase: str = "train"
+
+    # resolution
+    max_dim: int = 256
+    true_dim: int = 256
+    aspect_ratio: float = 1.0
+    imagenet_norm: bool = False
+
+    # clips
+    vid_len: int = 16
+    p2p_len: Optional[int] = None
+    load_vid_len: Optional[int] = None
+    max_vid_step: int = 1000
+    vid_skip: int = 1
+    one_every_n: int = 1
+    fps: int = 4
+    from_vid: bool = False
+    is_seq: bool = True
+
+    # batching
+    batch_size_img: int = 1
+    batch_size_vid: int = 1
+    # validation/generation batches are this multiple of the train batch
+    # (reference `--batch_size_valid_mult`, `options.py:55`, applied at
+    # `helpers/generator.py:240` / `transformer_trainer.py:99`)
+    batch_size_valid_mult: int = 1
+    # shuffle the validation split too (reference `--shuffle_valid`,
+    # `options.py:91`; the shipped save_videos scripts pass it)
+    shuffle_valid: bool = True
+    n_consecutive_img: int = 1
+    img_out_of_n: int = 1
+
+    # augmentation
+    no_h_flip: bool = True
+    no_v_flip: bool = True
+    min_zoom: float = 1.0
+    max_zoom: float = 1.0
+    colorjitter: Optional[float] = None
+    resize_center_crop_img: Optional[int] = None
+
+    # elastic-view self-supervision (reference `data/augmentations.py`)
+    load_elastic_view: bool = False
+    elastic_alpha: float = 1.5
+    elastic_sigma: float = 0.15
+    elastic_min_zoom: float = 1.0
+    elastic_max_zoom: float = 1.0
+    elastic_occlusion: bool = False
+    elastic_corruption: bool = False
+    elastic_mean_corruption: float = 0.5
+    distort_first: bool = False
+    blur_first: Optional[Tuple[float, float]] = None
+
+    # folds (large datasets are indexed fold by fold, reference
+    # options.py:72-76)
+    num_folds_train: Optional[int] = None
+    init_fold_train: int = 0
+    # pick a random fold per cycle instead of round-robin (reference
+    # --random_fold_train, set by the shipped kinetics scripts;
+    # `helpers/frame_autoencoder_trainer.py:108`)
+    random_fold_train: bool = False
+
+    # state / audio
+    load_state: bool = False
+    categories: Optional[Tuple[str, ...]] = None
+
+    # layout twins: load per-frame segmentations alongside frames (reference
+    # keys off `vid_layout_paths` in the dataset metadata,
+    # `base_dataset.py:245-273`; this flag drives the synthetic dataset)
+    load_layout: bool = False
+
+    num_workers: int = 8
+
+    @property
+    def height(self) -> int:
+        return self.max_dim
+
+    @property
+    def width(self) -> int:
+        return int(self.max_dim * self.aspect_ratio)
 
 
 @dataclass(frozen=True)
@@ -77,6 +167,11 @@ class TransformerConfig:
     state_num: int = 0  # state vocabulary
     state_size: int = 0  # state tokens per frame
     use_start_token: bool = False
+    cat: bool = False  # a class label leads the prefix
+    num_lbl: int = 0  # classes
+    stft: bool = False  # audio tokens are the state stream
+    deblurring: bool = False  # a blurred clip's tokens are the state stream
+    blur_sigma: int = 10
 
     # sampling
     sample: bool = True
@@ -85,6 +180,10 @@ class TransformerConfig:
     sample_state: bool = False
     temperature_state: float = 1.0
     top_k_state: Optional[int] = None
+    beam_size: Optional[int] = None
+    # beam search: the first frame position takes the top tokens instead of
+    # Gumbel-sampled ones
+    no_sample: bool = False
 
     # int8 weights and activations in the decode step (nn/quantized.py)
     serve_int8: bool = False
@@ -110,11 +209,25 @@ class StateConfig:
 
 
 @dataclass(frozen=True)
+class StftConfig:
+    """STFT audio autoencoder (reference ``options.py:374-395``, prefix ``a_``):
+    64x16 spectrogram patches to ``stft_shape`` latents of ``stft_size``
+    channels, ``stft_num`` codes."""
+
+    stft_size: int = 16
+    stft_shape: Tuple[int, int] = (8, 2)
+    stft_hsize: int = 128
+    stft_num: int = 1024
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "experiment"
+    data: DataConfig = field(default_factory=DataConfig)
     ae: AutoencoderConfig = field(default_factory=AutoencoderConfig)
     gpt: TransformerConfig = field(default_factory=TransformerConfig)
     state: StateConfig = field(default_factory=StateConfig)
+    stft: StftConfig = field(default_factory=StftConfig)
 
 
 def _bair_ae() -> AutoencoderConfig:
@@ -136,6 +249,28 @@ def bairhd_config(name: str = "bairhd") -> Config:
     """BAIR robot pushing at 256x256 (scripts/bairhd/*.sh)."""
     return Config(
         name=name,
+        data=DataConfig(
+            dataset="bairhd",
+            dataroot="datasets/bairhd",
+            max_dim=256,
+            true_dim=256,
+            vid_len=16,
+            fps=4,
+            from_vid=False,
+            batch_size_img=96,
+            batch_size_vid=16,
+            n_consecutive_img=2,
+            img_out_of_n=30,
+            load_elastic_view=True,
+            elastic_alpha=3.0,
+            elastic_sigma=0.1,
+            elastic_min_zoom=0.90,
+            elastic_max_zoom=1.10,
+            elastic_corruption=True,
+            blur_first=(0.0, 2.0),
+            distort_first=True,
+            load_vid_len=30,
+        ),
         ae=_bair_ae(),
         gpt=TransformerConfig(
             z_num=1024,
@@ -165,7 +300,8 @@ def bairhd_p2p_config() -> Config:
     """Point-to-point BAIR (scripts/bairhd/train_transformer_p2p.sh): the end
     frame's tokens are a prefix of the window."""
     c = bairhd_config("bairhd_p2p")
-    return dataclasses.replace(c, gpt=dataclasses.replace(c.gpt, p2p=True))
+    return dataclasses.replace(c, gpt=dataclasses.replace(c.gpt, p2p=True),
+                               data=dataclasses.replace(c.data, p2p_len=16))
 
 
 def bairhd_unc_config() -> Config:
@@ -181,6 +317,20 @@ def kinetics_config() -> Config:
     clips continued from 5 context frames (``cond_len`` 320 = 5 x 64)."""
     return Config(
         name="kinetics600",
+        data=DataConfig(
+            dataset="kinetics600",
+            dataroot="datasets/kinetics",
+            max_dim=64,
+            true_dim=256,
+            vid_len=16,
+            from_vid=True,
+            imagenet_norm=True,
+            resize_center_crop_img=256,
+            no_h_flip=True,
+            batch_size_vid=16,
+            num_folds_train=100,
+            random_fold_train=True,
+        ),
         ae=AutoencoderConfig(
             necf=64,
             necf_mult=(1, 2, 4, 8),
@@ -209,11 +359,82 @@ def kinetics_p2p_config() -> Config:
     """Point-to-point Kinetics-600 (scripts/kinetics/save_videos_p2p.sh:
     --x_p2p --p2p_len 16 --x_z_len 1024 --x_z_chunk 64)."""
     c = kinetics_config()
-    return dataclasses.replace(c, name="kinetics600_p2p", gpt=dataclasses.replace(
-        c.gpt, p2p=True, z_len=1024, num_blocks=16, cond_len=64))
+    return dataclasses.replace(
+        c, name="kinetics600_p2p",
+        gpt=dataclasses.replace(c.gpt, p2p=True, z_len=1024, num_blocks=16, cond_len=64),
+        data=dataclasses.replace(c.data, p2p_len=16))
 
 
 def ucf101_config() -> Config:
     """UCF-101 at 256x256 (scripts/ucf101/*.sh): BAIR-256's model; the
-    presets differ only in their data, which the port does not read."""
-    return bairhd_config("ucf101")
+    presets differ in their data."""
+    c = bairhd_config("ucf101")
+    return dataclasses.replace(c, data=dataclasses.replace(
+        c.data, dataset="ucf101", dataroot="datasets/ucf101", from_vid=True,
+        resize_center_crop_img=256, load_elastic_view=True))
+
+
+def drums_config() -> Config:
+    """Audio-conditioned drums at 128x128 (scripts/drums/*.sh): 45-frame clips
+    at 30 fps continued from 15 context frames (``cond_len`` 960 = 15 x 64),
+    each frame's 64 tokens after its 16 audio tokens (a 64x16 spectrogram
+    patch through :class:`~ccvs_tpu_torch.models.stft_model.StftModel`), in
+    a 1280-token window of 16 frames."""
+    return Config(
+        name="drums",
+        data=DataConfig(
+            dataset="drums",
+            dataroot="datasets/drums",
+            max_dim=128,
+            true_dim=96,
+            vid_len=45,
+            fps=30,
+            from_vid=True,
+        ),
+        ae=AutoencoderConfig(
+            necf=128,
+            necf_mult=(1, 1, 2, 2, 4),
+            z_size=512,
+            z_num=1024,
+            z_shape=(8, 8),
+            max_dim=128,
+            inter_p=0.75,
+            skip_context=tuple(range(1, 16)),
+            skip_memory=15,
+        ),
+        gpt=TransformerConfig(
+            z_num=1024,
+            z_len=1280,
+            z_chunk=80,
+            cond_len=960,
+            n_layer=24,
+            n_head=16,
+            n_embd=1024,
+            num_blocks=16,
+            stft=True,
+            state=True,
+            state_num=1024,
+            state_size=16,
+            top_k=100,
+        ),
+        stft=StftConfig(stft_size=16, stft_shape=(8, 2), stft_num=1024),
+    )
+
+
+PRESETS = {
+    "bairhd": bairhd_config,
+    "bairhd_state": bairhd_state_config,
+    "bairhd_p2p": bairhd_p2p_config,
+    "bairhd_unc": bairhd_unc_config,
+    "kinetics600": kinetics_config,
+    "kinetics600_p2p": kinetics_p2p_config,
+    "ucf101": ucf101_config,
+    "drums": drums_config,
+}
+
+
+def get_config(preset, **overrides):
+    """The preset named ``preset`` with the top-level fields in ``overrides``
+    replaced."""
+    cfg = PRESETS[preset]()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

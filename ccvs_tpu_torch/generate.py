@@ -1,25 +1,32 @@
 """Video synthesis: AR token generation + doubly-AR image decode
-(counterpart of ``ccvs_tpu/generate.py``): frame continuation, the state-
-conditioned, point-to-point and unconditional modes, and the sliding window
-for clips longer than the transformer's window.
+(counterpart of ``ccvs_tpu/generate.py``): frame continuation; the state-
+conditioned, audio-conditioned (STFT), deblurring, class-conditional,
+point-to-point and unconditional modes; beam search and the sliding window
+for clips longer than the transformer's window (in
+:class:`~ccvs_tpu_torch.models.transformer.TokenTransformer`); ``down_size``;
+step-by-step generation, which re-encodes each decoded frame; and generation
+from one image.
 
-Class labels, audio (STFT), deblurring, layouts and ``down_size`` are not
-ported yet (``ROADMAP.md``, queue 1).
+Layouts are not ported yet (``ROADMAP.md``, queue 1).
 """
 
 import numpy as np
 import torch
 
+from ccvs_tpu_torch.ops.resize import resize_frames
+from ccvs_tpu_torch.train.transformer_trainer import blur_video
+
 
 class VideoGenerator:
-    """Composes the frozen autoencoder, transformer and (for state
-    conditioning) state model into the synthesis pipeline."""
+    """Composes the frozen autoencoder, transformer and (for state or audio
+    conditioning) state or STFT model into the synthesis pipeline."""
 
-    def __init__(self, cfg, ae, transformer, state_model=None):
+    def __init__(self, cfg, ae, transformer, state_model=None, stft_model=None):
         self.cfg = cfg
         self.ae = ae
         self.transformer = transformer
         self.state_model = state_model
+        self.stft_model = stft_model
 
     @torch.no_grad()
     def generate(self, real_vid, generator, rec=True, fake=True, n_ctx_frames=None,
@@ -30,7 +37,7 @@ class VideoGenerator:
         Args:
           real_vid: ``(B, T, H, W, 3)`` in [-1, 1], on the models' device.
           generator: the ``torch.Generator`` (on that device) of the token
-            sampling.
+            sampling, and of the class labels drawn when none are given.
           n_ctx_frames: context frames (default ``cond_len / tokens_per_frame``;
             0 for the unconditional mode).
           keep_state: with state conditioning, give the transformer the whole
@@ -38,40 +45,63 @@ class VideoGenerator:
           custom_state: ``(B, T, state_size)`` states to condition on instead
             of the estimated ones (implies ``keep_state``), e.g. from
             :meth:`custom_square_state`.
-          stft, vid_lbl, layout, down_size: not ported yet; raise.
+          stft: ``(B, T, 64, 16, 1)`` spectrogram patches, one a frame: with
+            ``cfg.gpt.stft`` their audio tokens are the whole given state
+            stream.
+          vid_lbl: ``(B,)`` class labels (``cfg.gpt.cat``); drawn at random
+            when None.
+          down_size: degrade ``real_vid`` first: resize its frames to
+            ``down_size`` square and back (bilinear, antialiased).
+          layout: not ported yet; raises.
+
+        With ``cfg.gpt.deblurring`` the tokens of the blurred clip are the
+        whole given state stream, and the decode's context frames are the
+        blurred ones.
 
         Returns:
           dict with ``fake`` ``(B, T, H, W, 3)`` and ``code`` (its frame
           tokens) unless ``fake=False``; ``rec`` (the rollout decode of the
-          real clip's own tokens) with ``rec=True``; with state conditioning
-          ``state`` (the real clip's estimated states) and ``fake_state``
-          ``(B, T, state_size)`` (the generated states) with their tokens
-          ``state_code``. In point-to-point mode the last frame of ``fake``
-          is the real end frame.
+          real clip's own tokens) with ``rec=True``; ``state_code`` (the state
+          or audio stream the transformer ran with, ``(B, T * state_size)``)
+          where there is one; with state conditioning ``state`` (the real
+          clip's estimated states) and ``fake_state`` ``(B, T, state_size)``
+          (the generated states); ``blur`` (the blurred clip) with
+          deblurring; ``vid_lbl`` where the labels were drawn here. In
+          point-to-point mode the last frame of ``fake`` is the real end
+          frame.
         """
-        for name, value in (("stft", stft), ("vid_lbl", vid_lbl), ("layout", layout),
-                            ("down_size", down_size)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"generate({name}=...) is not ported yet; see ROADMAP.md, queue 1")
+        if layout is not None:
+            raise NotImplementedError("generate(layout=...) is not ported yet; see ROADMAP.md, "
+                                      "queue 1")
         cfg = self.cfg
         gcfg = cfg.gpt
         b, t = real_vid.shape[:2]
         size = cfg.ae.tokens_per_frame
         if n_ctx_frames is None:
             n_ctx_frames = gcfg.cond_len // size
+        if down_size is not None:
+            real_vid = resize_frames(resize_frames(real_vid, down_size), real_vid.shape[2])
         enc = self.ae.encode(real_vid)
         code_all = enc["code"].reshape(b, -1)
         out = {}
 
         state_code = None
-        if gcfg.state and self.state_model is not None:
+        if gcfg.state and self.state_model is not None and not gcfg.stft:
             out["state"] = self.state_model.estimate(self.ae.embed_code(enc["code"]))
             if custom_state is not None:
                 state_code = self.state_model.encode(state=custom_state)
                 keep_state = True
             else:
                 state_code = self.state_model.encode(state=out["state"])
+        if gcfg.stft and self.stft_model is not None and stft is not None:
+            state_code = self.stft_model.encode(stft)
+        ctx_vid = real_vid
+        if gcfg.deblurring:
+            ctx_vid = out["blur"] = blur_video(real_vid, gcfg.blur_sigma)
+            state_code = self.ae.encode(ctx_vid)["code"].reshape(b, -1)
+        if gcfg.cat and vid_lbl is None:
+            vid_lbl = out["vid_lbl"] = torch.randint(0, gcfg.num_lbl, (b,), generator=generator,
+                                                     device=generator.device)
 
         cond_code = delta = cond_inter = None
         t_step = t  # frames generated and decoded
@@ -83,33 +113,141 @@ class VideoGenerator:
             delta = torch.full((b,), t - 1, dtype=torch.long, device=code_all.device)
             cond_inter = [f[:, -1] for f in enc["inter"]]
         total_len = t * size  # the prefix's tokens and the body's
-        if gcfg.state:
+        if gcfg.state or gcfg.stft or gcfg.deblurring:
             total_len += t_step * gcfg.state_size
 
         ctx_code = code_all[:, :n_ctx_frames * size]
-        if state_code is not None and not keep_state:
+        # audio and blurred streams are given whole; otherwise the transformer
+        # samples the states past the context unless keep_state
+        if state_code is not None and not (gcfg.stft or gcfg.deblurring or keep_state):
             state_code = state_code[:, :n_ctx_frames * gcfg.state_size]
-        ctx_frames = real_vid[:, :n_ctx_frames]
 
         if fake:
             gen = self.transformer.generate(ctx_code, generator, state_code=state_code,
-                                            cond_code=cond_code, delta=delta,
+                                            cond_code=cond_code, delta=delta, lbl=vid_lbl,
                                             total_len=total_len)
             codes = gen["code"][:, :t_step * size]
             out["code"] = codes
-            fake_vid = self.ae.decode_video(codes.reshape(b, t_step, size), ctx_frames=ctx_frames,
+            fake_vid = self.ae.decode_video(codes.reshape(b, t_step, size),
+                                            ctx_frames=ctx_vid[:, :n_ctx_frames],
                                             n_ctx=n_ctx_frames, cond_inter=cond_inter)
             if gcfg.p2p:
                 fake_vid = torch.cat([fake_vid, real_vid[:, -1:].to(fake_vid.dtype)], dim=1)
             out["fake"] = fake_vid
-            if gen["state_code"] is not None and self.state_model is not None:
+            if gen["state_code"] is not None:
                 sc = gen["state_code"][:, :t * gcfg.state_size]
                 out["state_code"] = sc
-                out["fake_state"] = self.state_model.decode(sc).reshape(b, t, gcfg.state_size)
+                if self.state_model is not None and not gcfg.stft:
+                    out["fake_state"] = self.state_model.decode(sc).reshape(b, t,
+                                                                            gcfg.state_size)
         if rec:
             out["rec"] = self.ae.decode_video(enc["code"].reshape(b, t, size),
-                                              ctx_frames=ctx_frames, n_ctx=n_ctx_frames)
+                                              ctx_frames=real_vid[:, :n_ctx_frames],
+                                              n_ctx=n_ctx_frames)
         return out
+
+    @torch.no_grad()
+    def generate_step_by_step(self, real_vid, generator, n_ctx_frames=None, fixed_shape=True):
+        """Continue ``real_vid`` one frame at a time: the transformer makes a
+        frame's tokens, the frame is decoded against the context FIFO, then
+        re-encoded, and the re-encode's tokens replace the predicted ones, so
+        the transformer always conditions on tokens of the frames it shows.
+
+        ``fixed_shape`` (default) keeps a full-window token buffer and extends
+        it with :meth:`TokenTransformer.generate_chunk_fixed`, dropping its
+        oldest frame when it is full; ``fixed_shape=False`` grows the token
+        stream and calls :meth:`TokenTransformer.generate` on it. The
+        point-to-point mode takes the growing path, with the end frame's
+        tokens as the prefix (its ``delta`` moved as the window slides) and
+        its features as an extra decode context; the real end frame closes
+        the clip.
+
+        Returns ``{"fake": (B, T, H, W, 3), "code": (B, T' * tokens a frame)}``:
+        the context frames, the generated ones (and the real end frame), and
+        the tokens of the context and generated frames, each generated
+        frame's those of its re-encode."""
+        cfg = self.cfg
+        gcfg = cfg.gpt
+        ae, tr = self.ae, self.transformer
+        b, t = real_vid.shape[:2]
+        size = cfg.ae.tokens_per_frame
+        m = cfg.ae.skip_memory
+        if n_ctx_frames is None:
+            n_ctx_frames = gcfg.cond_len // size
+
+        enc = ae.encode(real_vid[:, :n_ctx_frames])
+        code = enc["code"].reshape(b, -1)
+        # the context FIFO seeded from the real context frames
+        fifo = ae._zero_inters(b, m)
+        take = min(n_ctx_frames, m)
+        for r in range(len(fifo)):
+            fifo[r][:, m - take:] = enc["inter"][r][:, n_ctx_frames - take:].to(fifo[r].dtype)
+
+        cond_code = cond_inter = delta = None
+        t_gen = t - n_ctx_frames
+        keep = gcfg.z_len - gcfg.z_chunk  # tokens kept when the window slides
+        if gcfg.p2p:
+            fixed_shape = False
+            enc_end = ae.encode(real_vid[:, -1:])
+            cond_code = enc_end["code"].reshape(b, -1)
+            cond_inter = [f[:, -1] for f in enc_end["inter"]]
+            delta = torch.full((b,), t - 1, dtype=torch.long, device=code.device)
+            t_gen -= 1
+            keep -= gcfg.z_chunk  # the cond chunk takes one more
+        if fixed_shape and size != gcfg.z_chunk:
+            raise ValueError("generate_step_by_step: the fixed-shape path takes the plain frame "
+                             "stream (z_chunk == tokens a frame)")
+        n = code.shape[1]
+        if fixed_shape:
+            merged = code.new_zeros(b, gcfg.z_len)
+            merged[:, :n] = code
+
+        frames = [real_vid[:, i].to(ae.dtype) for i in range(n_ctx_frames)]
+        codes = [code]
+        for curr in range(n_ctx_frames, n_ctx_frames + t_gen):
+            if n > keep:  # free a chunk of the window
+                if fixed_shape:
+                    merged = torch.cat([merged[:, n - keep:], merged.new_zeros(b, n - keep)],
+                                       dim=1)
+                else:
+                    if gcfg.p2p:
+                        # reposition the delta embedding for the dropped frames
+                        delta = delta - ((n - gcfg.z_len) // gcfg.z_chunk + 2)
+                    code = code[:, -keep:]
+                n = keep
+            if fixed_shape:
+                merged = tr.generate_chunk_fixed(merged, n, generator)
+                chunk = merged[:, n:n + size]
+            else:
+                total = n + gcfg.z_chunk + (0 if cond_code is None else cond_code.shape[1])
+                gen = tr.generate(code, generator, cond_code=cond_code, delta=delta,
+                                  total_len=total)
+                chunk = gen["code"][:, -size:]
+            frame = ae.decode_frame(ae.embed_code(chunk), fifo, ae.fifo_mask(b, curr),
+                                    extra_ctx=cond_inter)
+            # re-encode: fresh context features and the frame's own tokens
+            new_enc = ae.encode(frame)
+            fifo = ae.fifo_push(fifo, new_enc["inter"])
+            new_code = new_enc["code"].reshape(b, -1)
+            if fixed_shape:
+                merged[:, n:n + size] = new_code
+            else:
+                code = torch.cat([gen["code"][:, :-size], new_code], dim=1)
+            n += gcfg.z_chunk
+            frames.append(frame)
+            codes.append(new_code)
+        if gcfg.p2p:
+            frames.append(real_vid[:, -1].to(ae.dtype))
+        return {"fake": torch.stack(frames, dim=1), "code": torch.cat(codes, dim=1)}
+
+    @torch.no_grad()
+    def generate_from_image(self, img, generator, vid_len=None, **kw):
+        """A clip of ``vid_len`` frames (default ``cfg.data.vid_len``) from one
+        frame ``img`` ``(B, H, W, 3)``: :meth:`generate` with the image as its
+        one context frame (and ``rec=False``); ``kw`` go to it."""
+        t = vid_len or self.cfg.data.vid_len
+        clip = img[:, None].expand(img.shape[0], t, *img.shape[1:]).contiguous()
+        return self.generate(clip, generator, n_ctx_frames=1, rec=False, **kw)
 
     @torch.no_grad()
     def custom_square_state(self, real_vid):

@@ -1,13 +1,14 @@
 """Latent-token transformer: KV-cached autoregressive generation with the
-sliding window (counterpart of the generation part of
+sliding window, beam search and the fixed-window chunk of step-by-step
+generation (counterpart of the generation part of
 ``ccvs_tpu/models/transformer.py``), over the frame stream with interleaved
-state tokens and the ``[start][cond]`` prefix.
+state tokens and the ``[lbl][start][cond]`` prefix.
 
 The JAX package scans its per-token decode step as one compiled program
-(``_fill_jit``); here it is a Python loop whose tensors stay on the device:
-nothing in the loop waits for the GPU. The schedule (each position's kind,
-spatial and temporal index, and whether its token is given) is static
-numpy, so the loop reads it on the host.
+(``_fill_jit``, ``_fill_beam_jit``, ``_chunk_fill_jit``); here it is a Python
+loop whose tensors stay on the device: nothing in the loop waits for the GPU.
+The schedule (each position's kind, spatial and temporal index, and whether
+its token is given) is static numpy, so the loop reads it on the host.
 """
 
 from functools import partial
@@ -17,7 +18,8 @@ import torch
 from torch import nn
 
 from ccvs_tpu_torch.device import resolve_device
-from ccvs_tpu_torch.nn.gpt import GPT, KIND_STATE, build_schedule, cache_to_layers, decode_step_fn
+from ccvs_tpu_torch.nn.gpt import (GPT, KIND_FRAME, KIND_STATE, build_schedule, cache_to_layers,
+                                   decode_step_fn)
 from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
 
 
@@ -45,6 +47,44 @@ def _sample_token(cfg, generator, logits, kind):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _top_k(x, k):
+    """The ``k`` largest entries along the last axis, values and indices,
+    ties to the lower index as ``jax.lax.top_k`` orders them (``torch.topk``
+    promises no order among ties, which ``-inf``-masked logits have)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mask_below_top_k(logits, k):
+    """Logits under the ``k``-th largest of their row set to ``-inf``."""
+    thresh = torch.topk(logits, min(k, logits.shape[-1]), dim=-1).values[:, -1:]
+    return logits.masked_fill(logits < thresh, float("-inf"))
+
+
+def _beam_logprobs(cfg, logits):
+    """Log-probabilities of the frame vocabulary that beam search scores:
+    the temperature and ``top_k`` mask, then ``log_softmax``."""
+    lg = logits.float()[:, :cfg.z_num] / cfg.temperature
+    if cfg.top_k is not None:
+        lg = _mask_below_top_k(lg, cfg.top_k)
+    return torch.log_softmax(lg, dim=-1)
+
+
+def _beam_state_token(cfg, generator, logits):
+    """A state token for each hypothesis, outside the beam score: the state
+    temperature, vocabulary and ``top_k_state`` (without the fallback to
+    ``top_k`` of :func:`_sample_token`, as the JAX package's beam search)."""
+    lg = logits.float() / cfg.temperature_state
+    vocab = lg.shape[-1]
+    lg = lg.masked_fill(torch.arange(vocab, device=lg.device) >= max(cfg.state_num, 1),
+                        float("-inf"))
+    if cfg.top_k_state is not None:
+        lg = _mask_below_top_k(lg, cfg.top_k_state)
+    if cfg.sample_state or cfg.sample:
+        return torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
+    return lg.argmax(-1)
+
+
 class TokenTransformer(nn.Module):
     def __init__(self, cfg, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -62,7 +102,7 @@ class TokenTransformer(nn.Module):
         return self
 
     @torch.no_grad()
-    def generate(self, code, generator, state_code=None, cond_code=None, delta=None,
+    def generate(self, code, generator, state_code=None, cond_code=None, delta=None, lbl=None,
                  total_len=None):
         """Extend the given frame tokens ``code`` ``(B, n0)`` (and state
         tokens ``state_code``) autoregressively: fill one window, then slide
@@ -70,17 +110,17 @@ class TokenTransformer(nn.Module):
         and body are made (default: one window).
 
         ``cond_code`` ``(B, Lc)`` are the point-to-point prefix's tokens and
-        ``delta`` ``(B,)`` their temporal shift, decremented at each slide.
-        With ``cfg.serve_int8`` the decode step runs on int8 weights,
-        quantized once here.
+        ``delta`` ``(B,)`` their temporal shift, decremented at each slide;
+        ``lbl`` ``(B,)`` the class labels of the class-conditional mode. With
+        ``cfg.beam_size > 1`` each window is filled by beam search. With
+        ``cfg.serve_int8`` the decode step runs on int8 weights, quantized
+        once here.
 
         Returns ``{"code": (B, n_frame_tokens), "state_code": (B,
         n_state_tokens) or None}``."""
         cfg = self.cfg
         b = code.shape[0]
-        step_fn = decode_step_fn
-        if cfg.serve_int8:
-            step_fn = partial(decode_step_fn_int8, qparams=quantize_gpt_int8(self.model))
+        step_fn = self._step_fn()
         if cfg.state_size > 0 and state_code is None:
             state_code = code.new_zeros(b, 0)
         n_cond = 0 if cond_code is None else cond_code.shape[1]
@@ -91,7 +131,7 @@ class TokenTransformer(nn.Module):
         f_cap = int((cap_sched.frame_pos < cap).sum())
         s_cap = int((cap_sched.state_pos < cap).sum())
 
-        fill = partial(self._fill, generator, step_fn, cond_code=cond_code)
+        fill = partial(self._fill, generator, step_fn, cond_code=cond_code, lbl=lbl)
         first = min(cap, budget)
         new_code, new_state = fill(code, state_code, delta=delta, length=first)
         code = new_code
@@ -116,6 +156,39 @@ class TokenTransformer(nn.Module):
             i += 1
         return {"code": code, "state_code": state_code}
 
+    @torch.no_grad()
+    def generate_chunk_fixed(self, merged, n, generator):
+        """Extend a full-window token buffer ``merged`` ``(B, z_len)``, whose
+        first ``n`` tokens are real, by one ``z_chunk`` at positions ``n ..
+        n + z_chunk - 1``: a prefill of the whole window (the placeholders
+        past ``n`` are causally invisible to the positions before them and
+        overwritten as the loop reaches them), then ``z_chunk`` cached decode
+        steps. The plain frame stream only: no label, start or cond prefix.
+        Returns the extended buffer (``merged`` is not modified)."""
+        cfg = self.cfg
+        if cfg.use_start_token or cfg.cat or cfg.p2p:
+            raise ValueError("generate_chunk_fixed: the plain frame stream only (no label, "
+                             "start or cond prefix)")
+        length = cfg.z_len
+        if merged.shape[1] != length or not 1 <= n <= length - cfg.z_chunk:
+            raise ValueError(f"generate_chunk_fixed: buffer {tuple(merged.shape)}, n={n} "
+                             f"(a window of {length}, n in [1, {length - cfg.z_chunk}])")
+        sched = self._sched_for(length)
+        kind, s_idx, t_idx = sched.kind[:length], sched.s_idx[:length], sched.t_idx[:length]
+        merged = merged.long().clone()
+        logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, n)
+        self._decode(generator, self._step_fn(), merged, np.zeros(length, bool),
+                     range(n, n + cfg.z_chunk), kind, s_idx, t_idx, logits,
+                     cache_to_layers(cache), pos)
+        return merged
+
+    def _step_fn(self):
+        """The cached decode step: bf16 / fp32, or with ``cfg.serve_int8``
+        the int8 one on weights quantized now."""
+        if self.cfg.serve_int8:
+            return partial(decode_step_fn_int8, qparams=quantize_gpt_int8(self.model))
+        return decode_step_fn
+
     def _sched_for(self, merged_len):
         """Schedule of enough frames for ``merged_len`` body tokens."""
         cfg = self.cfg
@@ -125,12 +198,11 @@ class TokenTransformer(nn.Module):
             n_frames = -(-merged_len // per)
         return build_schedule(cfg, n_frames)
 
-    def _fill(self, generator, step_fn, code, state_code, cond_code, delta, length):
+    def _fill(self, generator, step_fn, code, state_code, cond_code, delta, lbl, length):
         """Prefill, then one cached decode step per position up to a body of
-        ``length`` tokens. Given tokens (the frame stream's first ``n0`` and
-        the state stream's) are never overwritten. Returns the frame and
-        state streams of the body."""
-        model = self.model
+        ``length`` tokens (by beam search with ``cfg.beam_size > 1``). Given
+        tokens (the frame stream's first ``n0`` and the state stream's) are
+        never overwritten. Returns the frame and state streams of the body."""
         b, n0 = code.shape
         n0_state = 0 if state_code is None else state_code.shape[1]
         if length <= 0:
@@ -151,21 +223,51 @@ class TokenTransformer(nn.Module):
             return code, state_code
         start = int(np.nonzero(~given)[0][0])
 
-        prefix_len = model.prefix_len(cond_code)
-        cache = model.init_cache(b, prefix_len + length)
+        if self.cfg.beam_size is not None and self.cfg.beam_size > 1:
+            # the first generated frame position, where the hypotheses part
+            free = np.nonzero((kind[start:] == KIND_FRAME) & ~given[start:])[0]
+            beam_start = start + int(free[0]) if len(free) else -1
+            hyps, log_p = self._fill_beam(generator, step_fn, merged, given, start, beam_start,
+                                          kind, s_idx, t_idx, cond_code, delta, lbl)
+            merged = hyps[torch.arange(b, device=dev), log_p.argmax(1)]
+        else:
+            logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, start, cond_code,
+                                               delta, lbl)
+            self._decode(generator, step_fn, merged, given, range(start, length), kind, s_idx,
+                         t_idx, logits, cache_to_layers(cache), pos)
+        out_state = None if state_code is None else merged[:, torch.as_tensor(spos, device=dev)]
+        return merged[:, torch.as_tensor(fpos, device=dev)], out_state
+
+    def _prefill(self, merged, kind, s_idx, t_idx, start, cond_code=None, delta=None, lbl=None):
+        """Run the prefix and the body ``merged`` ``(B, L)`` once through a new
+        cache; placeholders from ``start`` on are causally invisible to the
+        positions before them. Returns the logits that predict ``body[start]``,
+        the stacked cache and ``body[start]``'s absolute position, an int32
+        tensor of shape ``(1,)`` on the device."""
+        model = self.model
+        b = merged.shape[0]
+        prefix_len = model.prefix_len(cond_code, lbl)
+        cache = model.init_cache(b, prefix_len + merged.shape[1])
         emb = model.embed_one(merged, s_idx, t_idx, kind)
-        prefix = model._prefix_emb(b, cond_code, delta)
+        prefix = model._prefix_emb(b, cond_code, delta, lbl)
         if prefix is not None:
             emb = torch.cat([prefix, emb], dim=1)
         logits_all, cache = model.prefill(emb, cache)
-        cache = cache_to_layers(cache)
+        pos = torch.full((1,), prefix_len + start, dtype=torch.int32, device=merged.device)
         # logits at prefix_len + start - 1 predict body[start] (behind a start
-        # token and no context, the start token's; with no prefix and no
-        # context, index -1 clamps to 0 as JAX's dynamic index does); later
-        # placeholders are causally invisible and overwritten step by step
-        logits = logits_all[:, max(prefix_len + start - 1, 0)]
-        pos = torch.full((1,), prefix_len + start, dtype=torch.int32, device=dev)
-        for j in range(start, length):
+        # token and no context, the start token's); with no prefix and nothing
+        # given before body[0], index -1 reads the last position, as the JAX
+        # package's dynamic index wraps it
+        return logits_all[:, prefix_len + start - 1], cache, pos
+
+    def _decode(self, generator, step_fn, merged, given, positions, kind, s_idx, t_idx, logits,
+                cache, pos):
+        """One cached decode step per position of ``positions``, from the
+        logits and per-layer cache of :meth:`_prefill`: the position's token
+        (given, or sampled into ``merged`` in place) goes through the step,
+        and ``pos`` advances on the device."""
+        model = self.model
+        for j in positions:
             if given[j]:
                 tok = merged[:, j]
             else:
@@ -174,5 +276,76 @@ class TokenTransformer(nn.Module):
             emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
             logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
             pos += 1
-        out_state = None if state_code is None else merged[:, torch.as_tensor(spos, device=dev)]
-        return merged[:, torch.as_tensor(fpos, device=dev)], out_state
+
+    def _fill_beam(self, generator, step_fn, merged, given, start, beam_start, kind, s_idx, t_idx,
+                   cond_code, delta, lbl):
+        """Beam search over the body ``merged`` ``(B, L)`` from ``start``.
+
+        The ``beam`` hypotheses of each batch element are folded into the
+        batch (``B * beam``, element-major). At ``beam_start``, the first
+        generated frame position, each element takes ``beam`` distinct tokens
+        (Gumbel top-k, i.e. sampling without replacement; plain top-k when
+        greedy or ``no_sample``). Later frame positions either sample one
+        token per hypothesis (``sample``) and add its log-probability, or
+        expand ``beam``^2 candidates, keep the best ``beam`` and reorder the
+        hypotheses and the KV cache. State tokens and given tokens ride along
+        outside the score.
+
+        Returns the hypotheses ``(B, beam, L)`` and their summed
+        log-probabilities ``(B, beam)``."""
+        cfg, model = self.cfg, self.model
+        beam = cfg.beam_size
+        b, length = merged.shape
+        bb, dev = b * beam, merged.device
+
+        def rep(x):
+            return None if x is None else x.repeat_interleave(beam, dim=0)
+
+        merged = rep(merged)
+        logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, start, rep(cond_code),
+                                           rep(delta), rep(lbl))
+        # a reorder gathers the whole cache into the second buffer and the two
+        # swap: both stay contiguous, as K2 reads them (on the H100 the
+        # contiguous gather of all rows took less time than a strided one of
+        # the rows written so far at the rollout's mean position; PERF.md)
+        caches = [cache, tuple(torch.empty_like(c) for c in cache)]
+        layers = [cache_to_layers(c) for c in caches]
+        cur = 0
+        log_p = torch.zeros(bb, device=dev)
+        first_row = torch.arange(b, device=dev)[:, None] * beam
+        for j in range(start, length):
+            if given[j]:
+                tok = merged[:, j]
+            elif kind[j] == KIND_STATE:
+                tok = _beam_state_token(cfg, generator, logits)
+            else:
+                lp = _beam_logprobs(cfg, logits)  # (bb, z_num)
+                if j == beam_start:
+                    lp0 = lp[::beam]  # one row per element: its hypotheses are still clones
+                    score = lp0
+                    if cfg.sample and not cfg.no_sample:
+                        u = torch.rand(lp0.shape, generator=generator, device=dev)
+                        score = lp0 - torch.log(-torch.log(u + 1e-20) + 1e-20)
+                    _, tok = _top_k(score, beam)  # (b, beam)
+                    log_p = log_p + lp0.gather(1, tok).reshape(bb)
+                    tok = tok.reshape(bb)
+                elif cfg.sample:
+                    tok = torch.multinomial(lp.exp(), 1, generator=generator)[:, 0]
+                    log_p = log_p + lp.gather(1, tok[:, None])[:, 0]
+                else:
+                    vals, cand = _top_k(lp, beam)  # (bb, beam)
+                    total = (log_p[:, None] + vals).reshape(b, beam * beam)
+                    new_log_p, keep = _top_k(total, beam)  # (b, beam)
+                    tok = cand.reshape(b, beam * beam).gather(1, keep).reshape(bb)
+                    parent = (first_row + keep // beam).reshape(bb)
+                    merged = merged[parent]
+                    for side in range(2):
+                        torch.index_select(caches[cur][side], 1, parent,
+                                           out=caches[1 - cur][side])
+                    cur = 1 - cur
+                    log_p = new_log_p.reshape(bb)
+            merged[:, j] = tok
+            emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
+            logits = step_fn(model, emb1=emb1, pos=pos, cache=layers[cur])
+            pos += 1
+        return merged.reshape(b, beam, length), log_p.reshape(b, beam)

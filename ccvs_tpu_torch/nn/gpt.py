@@ -1,10 +1,10 @@
 """Autoregressive latent transformer with a fixed-shape KV cache
 (counterpart of ``ccvs_tpu/nn/gpt.py``): the frame-token stream, with state
-tokens interleaved (or in front), and the ``[start][cond]`` prefix of the
-unconditional and point-to-point modes.
+tokens interleaved (or in front), and the ``[lbl][start][cond]`` prefix of
+the class-conditional, unconditional and point-to-point modes.
 
 Parameter names follow the flax modules (``tok_emb``, ``state_tok_emb``,
-``start_tok_emb``, ``s_emb``, ``state_s_emb``, ``t_emb``,
+``start_tok_emb``, ``lbl_emb``, ``s_emb``, ``state_s_emb``, ``t_emb``,
 ``core.blocks.<layer>.{ln1, attn.{query, key, value, proj}, ln2, fc1, fc2}``,
 ``core.ln_f``, ``head``); the JAX package stacks the blocks along a leading
 layer axis, the port keeps one module per layer (see ``weights.py``).
@@ -225,6 +225,8 @@ class GPT(nn.Module):
             self.state_tok_emb = nn.Embedding(cfg.state_num, d, dtype=dtype)
         if cfg.use_start_token:
             self.start_tok_emb = nn.Parameter(torch.zeros(1, d, dtype=dtype))
+        if cfg.cat:
+            self.lbl_emb = nn.Embedding(cfg.num_lbl, d, dtype=dtype)
         self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, d, dtype=dtype))
         self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, d, dtype=dtype))
         if cfg.state_size > 0:
@@ -291,27 +293,31 @@ class GPT(nn.Module):
         pe = self._frame_pos_emb(ar % self.cfg.size, ar // self.cfg.size, delta)
         return self._tok(cond_code) + (pe[None] if delta is None else pe)
 
-    def _prefix_emb(self, b, cond_code=None, delta=None):
-        """The ``[start][cond]`` prefix ``(B, P, D)``, or None."""
+    def _prefix_emb(self, b, cond_code=None, delta=None, lbl=None):
+        """The ``[lbl][start][cond]`` prefix ``(B, P, D)``, or None; the label
+        ``lbl`` ``(B,)`` leads it in the class-conditional mode."""
         parts = []
+        if self.cfg.cat and lbl is not None:
+            parts.append(F.embedding(lbl, self.lbl_emb.weight)[:, None])
         if self.cfg.use_start_token:
             parts.append(self.start_tok_emb[None].expand(b, 1, -1))
         if cond_code is not None and cond_code.shape[1] > 0:
             parts.append(self._cond_emb(cond_code, delta))
         return torch.cat(parts, dim=1) if parts else None
 
-    def prefix_len(self, cond_code=None):
-        return int(self.cfg.use_start_token) + (0 if cond_code is None else cond_code.shape[1])
+    def prefix_len(self, cond_code=None, lbl=None):
+        return (int(self.cfg.cat and lbl is not None) + int(self.cfg.use_start_token)
+                + (0 if cond_code is None else cond_code.shape[1]))
 
-    def forward(self, code, state_code=None, cond_code=None, delta=None, sched=None):
+    def forward(self, code, state_code=None, cond_code=None, delta=None, lbl=None, sched=None):
         """Full causal forward over the prefix and the body of frame tokens
         ``code`` ``(B, n)`` (and state tokens ``state_code``) -> logits from
-        the start token (when there is one) on, ``(B, P' + body, V)``."""
+        the label and start token (where there are) on, ``(B, P' + body, V)``."""
         if sched is None:
             sched = _infer_schedule(self.cfg, code.shape[1],
                                     0 if state_code is None else state_code.shape[1])
         emb = self._body_emb(code, state_code, sched)
-        prefix = self._prefix_emb(code.shape[0], cond_code, delta)
+        prefix = self._prefix_emb(code.shape[0], cond_code, delta, lbl)
         if prefix is not None:
             emb = torch.cat([prefix, emb], dim=1)
         t_cond = 0 if cond_code is None else cond_code.shape[1]

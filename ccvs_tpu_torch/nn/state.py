@@ -1,5 +1,6 @@
-"""State estimator (counterpart of ``StateEstimator`` in
-``ccvs_tpu/nn/state.py``), NHWC: the STFT networks come with the audio slice."""
+"""State estimator and STFT audio autoencoder networks (counterparts of
+``StateEstimator``, ``StftEncoder`` and ``StftDecoder`` in
+``ccvs_tpu/nn/state.py``), NHWC."""
 
 import torch
 from torch import nn
@@ -31,3 +32,45 @@ class StateEstimator(nn.Module):
         # channel-major flattening, as the JAX package's NCHW transpose
         out = out.permute(0, 3, 1, 2).reshape(out.shape[0], -1)
         return unflatten_vid(torch.sigmoid(self.fc(out)), t)
+
+
+class StftEncoder(nn.Module):
+    """A 64x16 spectrogram patch (1 channel) -> an 8x2 latent of
+    ``stft_size`` channels: a 1x1 conv (``conv0``), three stride-2 convs
+    (``conv1``-``conv3``), a 3x3 conv (``conv4``), each with its LeakyReLU."""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__()
+        hs = cfg.stft_hsize
+        self.conv0 = ConvLayerAE(1, hs, 1, dtype=dtype)
+        for i in range(1, 4):
+            self.add_module(f"conv{i}", ConvLayerAE(hs, hs, 3, downsample=True, dtype=dtype))
+        self.conv4 = ConvLayerAE(hs, cfg.stft_size, 3, dtype=dtype)
+
+    def forward(self, x):
+        """``(B[, T], 64, 16, 1)`` -> ``(B[, T], 8, 2, stft_size)``."""
+        out, t = flatten_vid(x)
+        for i in range(5):
+            out = getattr(self, f"conv{i}")(out)
+        return unflatten_vid(out, t)
+
+
+class StftDecoder(nn.Module):
+    """An 8x2 latent -> a 64x16 spectrogram patch: a 3x3 conv (``conv0``),
+    three stride-2 transposed convs (``conv1``-``conv3``), a 1x1 conv to one
+    channel (``conv4``), then ``tanh``."""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__()
+        hs = cfg.stft_hsize
+        self.conv0 = ConvLayerAE(cfg.stft_size, hs, 3, dtype=dtype)
+        for i in range(1, 4):
+            self.add_module(f"conv{i}", ConvLayerAE(hs, hs, 3, upsample=True, dtype=dtype))
+        self.conv4 = ConvLayerAE(hs, 1, 1, dtype=dtype)
+
+    def forward(self, z):
+        """``(B[, T], 8, 2, stft_size)`` -> ``(B[, T], 64, 16, 1)`` in [-1, 1]."""
+        out, t = flatten_vid(z)
+        for i in range(5):
+            out = getattr(self, f"conv{i}")(out)
+        return unflatten_vid(torch.tanh(out), t)

@@ -11,8 +11,13 @@ read with numpy alone. Translation:
 - conv weights are already in torch layout and load as they are;
 - raw parameters (``s_emb``, ``state_s_emb``, ``start_tok_emb``, a
   codebook's ``embedding``) keep their names, so the state model's tree
-  (``estimator/...``, ``quantizer/embedding``) loads into ``StateModel`` as
-  it is.
+  (``estimator/...``, ``quantizer/embedding``) loads into ``StateModel`` and
+  the STFT model's (``encoder/...``, ``quantizer/embedding``,
+  ``decoder/...``) into ``StftModel`` as they are; the GPT's ``lbl_emb`` is an
+  ``Embed`` like ``tok_emb``.
+
+One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
+``stft/...``) loads model by model with ``prefix``.
 
 Every parameter of the module must be filled and every key must land, or
 loading raises.

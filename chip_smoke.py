@@ -13,10 +13,13 @@ Phases, each printing its wall time:
    paths' shapes (K2 with its position an int32 on the device, with caches of
    1024 rows at positions 0, 63, 64, 511 and 1023, of 1152 at 0, 1023, 1055
    and 1151, of 1280 at 0, 1151 and 1279, each also captured once in a CUDA
-   graph and replayed at those positions; K3 bit-equal to the CPU's at the
+   graph and replayed at those positions; K2 at beam search's batch of 8
+   after a cache reorder, also replayed; K3 bit-equal to the CPU's at the
    int8 decode step's products), then timed (CUDA events, L2 flushed,
-   median; K1 at the encode shapes of the rollouts and the state quantizer's,
-   K2 at positions 63, 511, 1023, 1151 and 1279, K3 at each product) beside
+   median; K1 at the encode shapes of the rollouts, one re-encoded frame's,
+   the state quantizer's and the drums audio quantizer's (depth 16), K2 at
+   positions 63, 511, 1023, 1151 and 1279 and at batch 8, the beam's cache
+   reorder, K3 at each product) beside
    its plain version, a PyTorch library call that the port never makes
    (K3: ``torch._int_mm`` alone and the bf16 step's ``F.linear``), and its
    bound (K1's against both the fp32 CUDA cores and its own three TF32
@@ -33,8 +36,9 @@ Phases, each printing its wall time:
    late in the window;
 6. reference: small fp32 configurations generated greedily on the GPU and on
    the CPU (where the kernels' plain versions run) must agree: frame
-   continuation, state-conditioned, point-to-point and unconditional tokens
-   equal and videos within 1e-3; int8 held to the CPU product by product
+   continuation, state-conditioned, point-to-point, unconditional, audio,
+   class-label, deblurring, beam-search and step-by-step tokens equal and
+   videos within 1e-3; int8 held to the CPU product by product
    along the GPU's tokens (each product bit-equal on the same input, each
    product's input within 1e-4 of its row's max), its video within 1e-3;
 7. modes: the full-width BAIR-256 state-conditioned, point-to-point,
@@ -42,7 +46,17 @@ Phases, each printing its wall time:
    as in phase 3 and its output checked (states in [0, 1] and the context
    frame's state tokens kept; the real end frame last, the end frame's
    prefix and delta moving the first frame's tokens and its features the
-   decode; int8 logits of one decode step within 8 % of the bf16 step's).
+   decode; int8 logits of one decode step within 8 % of the bf16 step's);
+8. drums: the full-width audio-conditioned drums rollout (128x128, 45
+   frames from 15, a seeded spectrogram's audio tokens given, the window
+   slides 29 times: 1920 decode steps), the audio tokens given back
+   unaltered and another spectrogram shown to move the tokens;
+9. serving: on full-width BAIR-256, step-by-step generation (each frame's
+   tokens its re-encode's), greedy beam search of 4 (the result the best
+   hypothesis, the scores those of a full forward), ``generate_from_image``
+   with ``down_size`` 64, then deblurring (the blurred clip's tokens given
+   back) and drawn class labels (a label shown to move the tokens) at 8
+   frames; each run once with its launches counted as in phase 3.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -188,12 +202,17 @@ def phase_kernels(records):
     g = torch.Generator(device="cuda").manual_seed(0)
     # K1 at the rollouts' shapes: the encode of 2 x 16 frames x 64 tokens and
     # the context re-encode (BAIR: 1024 codes of 512; Kinetics-600: 16384 of
-    # 256, and 2 x 24 frames), and the state quantizer's 2 x 16 frames x 2
-    # coordinates against 128 scalar codes; timed at the encode shapes
+    # 256, and 2 x 24 frames), the state quantizer's 2 x 16 frames x 2
+    # coordinates against 128 scalar codes, one frame's re-encode (step by
+    # step), the drums encode of 2 x 45 frames and its 15 context frames, and
+    # the drums audio quantizer's 2 x 45 frames x 16 latents of depth 16
+    # against 1024 codes; timed but for the context re-encodes
     shapes = []
-    for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, False),
+    for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
-                           (3072, 256, 16384, True), (64, 1, 128, True)):
+                           (3072, 256, 16384, True), (64, 1, 128, True),
+                           (5760, 512, 1024, True), (1920, 512, 1024, False),
+                           (1440, 16, 1024, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -270,6 +289,7 @@ def phase_kernels(records):
             warm = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t), flush_l2=False)
             log(f"K2 flash_decode pos={pos} bf16 with the caches in L2: {warm:.4f} ms; the same "
                 f"timer around a one-element fill_ launch: {floor:.4f} ms")
+    worst = max(worst, phase_beam_attention(g, pos_t, shapes))
     # the record's numbers are those at L 1024, pos 1023; "shapes" has all
     at_1023 = next(r for r in shapes if r["pos"] == 1023)
     records["flash_decode"] = {
@@ -279,6 +299,74 @@ def phase_kernels(records):
                                                                "bound_by", "library_ms")},
         "shapes": shapes, "launches_by_rollout": {}}
     phase_int8_linear(records)
+
+
+def phase_beam_attention(g, pos_t, shapes):
+    """K2 at beam search's batch: 2 clips x 4 hypotheses, L 1024, bf16. The
+    caches are reordered as a pruning step reorders them (a gather of whole
+    batch rows into the second buffer); K2 on the reordered caches must give
+    the rows of its output on the old ones in the new order, exactly, and
+    agree with the plain version, launched directly and replayed from a
+    CUDA graph captured before the reorder. Timed at pos 1023 beside SDPA,
+    and a step's reorder of the 24 layers' k and v (one ``index_select``
+    each) beside its bytes bound. Returns the max abs error."""
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
+
+    b, nh, hd, length, n_layer = 8, 16, 64, 1024, 24
+    q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
+    kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+    vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
+    kr, vr = torch.empty_like(kc), torch.empty_like(vc)
+    parent = torch.tensor([1, 1, 0, 3, 6, 4, 4, 4], device="cuda")  # rows kept, per clip
+    worst = 0.0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = flash_decode_attention(q, kr, vr, pos_t)
+    for pos in (0, 511, 1023):
+        pos_t.fill_(pos)
+        before = flash_decode_attention(q, kc, vc, pos_t)
+        torch.index_select(kc, 0, parent, out=kr)
+        torch.index_select(vc, 0, parent, out=vr)
+        out = flash_decode_attention(q, kr, vr, pos_t)
+        qp = q[parent]
+        if not torch.equal(flash_decode_attention(qp, kr, vr, pos_t), before[parent]):
+            raise AssertionError(f"flash_decode B=8 pos={pos}: the reordered caches do not "
+                                 "give the reordered output")
+        worst = max(worst, check_flash_decode(out, q, kr, vr, pos,
+                                              f"B=8 L={length} pos={pos} after a cache reorder"))
+        graph.replay()
+        worst = max(worst, check_flash_decode(replayed, q, kr, vr, pos,
+                                              f"B=8 L={length} CUDA-graph replay pos={pos} "
+                                              "after a cache reorder"))
+    pos = 1023
+    pos_t.fill_(pos)
+    ms = time_ms(lambda: flash_decode_attention(q, kr, vr, pos_t))
+    plain = time_ms(lambda: flash_decode_plain(q, kr, vr, pos_t))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr))
+    bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * length * hd),
+                       4 * b * nh * length * hd, PEAK_FP32_PER_S)
+    log(f"K2 flash_decode B=8 (2 clips x beam 4) L={length} pos={pos} bf16: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"{100 * bnd / ms:.1f}% of it)")
+    shapes.append({"batch": b, "length": length, "pos": pos, "ms": ms, "plain_ms": plain,
+                   "library_ms": lib, "bound_ms": bnd, "bound_by": by})
+    # the reorder of a beam step, k and v of every layer: whole, as the port
+    # gathers them, and the rows written so far at pos 512, their mean over
+    # a 1024-token rollout (a strided gather, which the port does not make)
+    kl = torch.zeros(n_layer, b, nh, length, hd, dtype=torch.bfloat16, device="cuda")
+    vl, kl2, vl2 = (torch.zeros_like(kl) for _ in range(3))
+    for rows in (length, length // 2):
+        ms = time_ms(lambda: [torch.index_select(src[:, :, :, :rows], 1, parent,
+                                                 out=dst[:, :, :, :rows])
+                              for src, dst in ((kl, kl2), (vl, vl2))])
+        n_bytes = 2 * 2 * kl[:, :, :, :rows].numel() * kl.element_size()
+        log(f"beam cache reorder, rows [0, {rows}) of 24 layers x k and v of "
+            f"{tuple(kl.shape[1:])} bf16 ({n_bytes / 2 / 1e9:.2f} GB gathered): {ms:.4f} ms, "
+            f"bytes bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    del kl, vl, kl2, vl2
+    return worst
 
 
 def phase_int8_linear(records):
@@ -344,20 +432,22 @@ def phase_int8_linear(records):
 
 def build_models(cfg):
     """The port's models of ``cfg`` in bf16 on the card from seeded inits (the
-    state model, in fp32 as the JAX package keeps it, where ``cfg`` conditions
-    on states)."""
+    state or STFT model, in fp32 as the JAX package keeps them, where ``cfg``
+    conditions on states or audio)."""
     import torch
     from ccvs_tpu_torch.generate import VideoGenerator
-    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, TokenTransformer
+    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, StftModel, TokenTransformer
 
     t0 = time.perf_counter()
     ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0)
     tr = TokenTransformer(cfg.gpt, dtype=torch.bfloat16).init(seed=1)
-    sm = StateModel(cfg.state).init(seed=7) if cfg.gpt.state else None
+    sm = StateModel(cfg.state).init(seed=7) if cfg.gpt.state and not cfg.gpt.stft else None
+    stft = StftModel(cfg.stft).init(seed=8) if cfg.gpt.stft else None
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (ae, tr, sm) if m is not None for p in m.parameters())
+    n_params = sum(p.numel() for m in (ae, tr, sm, stft) if m is not None
+                   for p in m.parameters())
     log(f"{cfg.name} init: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.1f} s")
-    return ae, tr, VideoGenerator(cfg, ae, tr, state_model=sm)
+    return ae, tr, VideoGenerator(cfg, ae, tr, state_model=sm, stft_model=stft)
 
 
 def clip(cfg, vid_len):
@@ -368,50 +458,57 @@ def clip(cfg, vid_len):
                       generator=g) * 2 - 1
 
 
-def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps):
-    """One ``generate`` on the card with every kernel's count set to 0 just
-    before it and read just after: K1 must have launched ``k1`` times, K2
-    once a layer in each of ``k2_steps`` decode steps, and K3 (with
-    ``serve_int8``) once a dense product in each of them (6 a layer and the
-    head), else never. Returns the output."""
+def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps, run=None, name=None, **kw):
+    """One ``generate`` (``kw`` its further arguments), or ``run(generator)``
+    in its place, on the card with every kernel's count set to 0 just before
+    it and read just after: K1 must have launched ``k1`` times, K2 once a
+    layer in each of ``k2_steps`` decode steps, and K3 (with ``serve_int8``)
+    once a dense product in each of them (6 a layer and the head), else
+    never. ``vid`` has the shape of the clip that comes out. The rollout is
+    recorded as ``name`` (default ``cfg.name``). Returns the output and its
+    wall time."""
     import torch
     from ccvs_tpu_torch.ops.attention import flash_decode_attention
     from ccvs_tpu_torch.ops.int8_linear import int8_linear
     from ccvs_tpu_torch.ops.vq import vq_indices
 
+    name = name or cfg.name
     vid_len = vid.shape[1]
     n_layer = cfg.gpt.n_layer
     want = {"vq_argmin": k1, "flash_decode": n_layer * k2_steps,
             "int8_linear": (6 * n_layer + 1) * k2_steps if cfg.gpt.serve_int8 else 0}
     wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
                 "int8_linear": int8_linear}
+    if run is None:
+        def run(g):
+            return gen.generate(vid, g, rec=False, n_ctx_frames=n_ctx, **kw)
     for fn in wrappers.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = gen.generate(vid, torch.Generator(device="cuda").manual_seed(4), rec=False,
-                       n_ctx_frames=n_ctx)
+    out = run(torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {key: fn.launches for key, fn in wrappers.items()}
 
     fake = out["fake"]
     assert fake.is_cuda, "fake video is not on the GPU"
     assert fake.shape == (BATCH, vid_len, cfg.ae.max_dim, cfg.ae.max_dim, 3), fake.shape
     assert bool(torch.isfinite(fake).all()), "fake video has non-finite values"
     if launches != want:
-        raise AssertionError(f"{cfg.name}: launches {launches}, expected {want} (K1 {k1}; "
+        raise AssertionError(f"{name}: launches {launches}, expected {want} (K1 {k1}; "
                              f"{k2_steps} decode steps of {n_layer} layers)")
-    for name, n in launches.items():
-        if records[name]["launches"] is None and n:  # the first rollout that ran it
-            records[name]["launches"] = n
-        records[name]["launches_by_rollout"][cfg.name] = n
+    for key, n in launches.items():
+        if records[key]["launches"] is None and n:  # the first rollout that ran it
+            records[key]["launches"] = n
+        records[key]["launches_by_rollout"][name] = n
     # generated frames: past the context, and before the real end frame in p2p
     frames = BATCH * (vid_len - n_ctx - int(cfg.gpt.p2p))
-    log(f"{cfg.name} rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} "
-        f"frames/s (batch {BATCH}, {vid_len} frames, {n_ctx} context), peak memory "
+    log(f"{name} rollout: {dt:.3f} s for {frames} generated frames = {frames / dt:.4f} "
+        f"frames/s (batch {BATCH}, {vid_len} frames, {n_ctx} context), {k2_steps} decode "
+        f"steps ({1e3 * dt / max(k2_steps, 1):.2f} ms each, all in), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, on {card}")
-    return out
+    return out, dt
 
 
 def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=None):
@@ -516,7 +613,7 @@ def phase_modes(records, card):
     cfg = bairhd_state_config()
     _, _, gen = build_models(cfg)
     vid = clip(cfg, VID_LEN)
-    out = run_path(records, card, cfg, gen, vid, 1, 3, VID_LEN * (size + 2) - (size + 2))
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 3, VID_LEN * (size + 2) - (size + 2))
     fs = out["fake_state"]
     if fs.shape != (BATCH, VID_LEN, 2) or not bool(((fs >= 0) & (fs <= 1)).all()):
         raise AssertionError(f"fake_state: shape {tuple(fs.shape)}, range "
@@ -533,7 +630,7 @@ def phase_modes(records, card):
     cfg = bairhd_p2p_config()
     _, _, gen = build_models(cfg)
     vid = clip(cfg, VID_LEN)
-    out = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 2) * size)
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 2) * size)
     if not torch.equal(out["fake"][:, -1], vid[:, -1].to(out["fake"].dtype)):
         raise AssertionError("p2p: the last frame is not the real end frame")
     log(f"{cfg.name}: the last frame is the real end frame")
@@ -552,7 +649,7 @@ def phase_modes(records, card):
                               gpt=dataclasses.replace(base.gpt, serve_int8=True))
     ae, tr, gen = build_models(cfg)
     vid = clip(cfg, VID_LEN)
-    out = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 1) * size)
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 1) * size)
     # one decode step at a filled cache (1023 tokens), int8 against bf16
     model = tr.model
     code = out["code"]
@@ -573,6 +670,167 @@ def phase_modes(records, card):
         f"bf16 step's (max |diff| / max |ref|, limit 0.08); argmax agreement {agree:.2f}")
     if not rel < 0.08:
         raise AssertionError(f"int8 decode step: {rel} >= 0.08 of the bf16 step's logits")
+
+
+def spectrogram(vid_len, seed):
+    """Seeded spectrogram patches in [-1, 1], one a frame, ``(B, T, 64, 16, 1)``:
+    a level and a drifting grating each, so that patches differ."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (BATCH, vid_len, 1, 1, 1)
+    ff = torch.linspace(0, 1, 64, device="cuda")[:, None, None]
+    tt = torch.linspace(0, 1, 16, device="cuda")[None, :, None]
+    f, w, ph, lvl = (lo + (hi - lo) * torch.rand(shape, device="cuda", generator=g)
+                     for lo, hi in ((0.5, 6), (0.5, 6), (0, 6.3), (-0.6, 0.6)))
+    return (lvl + 0.4 * torch.sin(2 * torch.pi * (f * ff + w * tt) + ph)).clamp(-1, 1)
+
+
+def phase_drums(records, card):
+    """The audio-conditioned drums preset at full width: 45 frames continued
+    from 15 with a seeded spectrogram's audio tokens as the whole given state
+    stream. The window (16 frames of 16 audio + 64 frame tokens) fills at
+    frame 16 (64 decode steps past 1216 given tokens), then slides 29 times,
+    each a re-prefill of 1216 given tokens and 64 decode steps: 1920 steps.
+    K1: the frame encode, the audio encode and the context re-encode."""
+    import torch
+    from ccvs_tpu_torch.config import drums_config
+
+    cfg = drums_config()
+    vid_len, n_ctx, size = cfg.data.vid_len, cfg.gpt.cond_len // 64, 64
+    _, tr, gen = build_models(cfg)
+    sm = gen.stft_model
+    # a seeded codebook far from the latents maps every patch to one code:
+    # draw it from the encoded latents of another seeded spectrogram
+    with torch.no_grad():
+        lat = sm.encoder(spectrogram(vid_len, 11)).reshape(-1, cfg.stft.stft_size).float()
+        pick = torch.randperm(len(lat), generator=torch.Generator().manual_seed(12))
+        sm.quantizer.embedding.copy_(lat[pick[:cfg.stft.stft_num].to(lat.device)])
+    vid, spec = clip(cfg, vid_len), spectrogram(vid_len, 13)
+    windows = 1 + (vid_len - 16)  # the fill, then one slide a frame
+    out, _ = run_path(records, card, cfg, gen, vid, n_ctx, 3, windows * size, stft=spec)
+    audio = sm.encode(spec)
+    if not torch.equal(out["state_code"], audio):
+        raise AssertionError("drums: the given audio tokens did not come back unaltered")
+    # another spectrogram moves the tokens of the first generated frame
+    ctx = out["code"][:, :n_ctx * size]
+    first = [tr.generate(ctx, torch.Generator(device="cuda").manual_seed(14), state_code=a,
+                         total_len=cfg.gpt.z_len)["code"][:, n_ctx * size:]
+             for a in (audio, sm.encode(spectrogram(vid_len, 15)))]
+    moved = float((first[0] != first[1]).float().mean())
+    log(f"drums: {len(audio.unique())} distinct audio tokens of {audio.numel()}, given back "
+        f"unaltered; another spectrogram changes {100 * moved:.1f}% of the first generated "
+        "frame's tokens")
+    if not moved:
+        raise AssertionError("drums: the audio tokens do not reach the sampling")
+
+
+def phase_serving(records, card):
+    """The rest of serving on full-width BAIR-256, bf16, batch 2, each run
+    once with its launches counted: step-by-step generation (16 frames),
+    greedy beam search of 4 hypotheses (16 frames), ``generate_from_image``
+    with ``down_size`` 64 (16 frames), then deblurring and class labels as
+    ``bairhd_config`` overrides (8 frames each)."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+
+    base = bairhd_config()
+    size = 64
+    steps = (VID_LEN - 1) * size  # 960: 15 frames past the context frame
+    ae, tr, gen = build_models(base)
+    vid = clip(base, VID_LEN)
+
+    # step by step: 15 chunks (a 1024-token prefill and 64 steps each), each
+    # frame decoded and re-encoded: K1 1 + 15
+    out, _ = run_path(records, card, base, gen, vid, 1, 1 + VID_LEN - 1, steps,
+                      run=lambda g: gen.generate_step_by_step(vid, g, n_ctx_frames=1),
+                      name="bairhd_step_by_step")
+    # each frame re-encoded alone, as the loop encodes it (a batch of 30
+    # frames takes other bf16 convolution algorithms)
+    reenc = torch.cat([ae.encode(out["fake"][:, i])["code"] for i in range(1, VID_LEN)], dim=1)
+    if not torch.equal(out["code"][:, size:], reenc):
+        raise AssertionError("step by step: a generated frame's tokens are not its re-encode's")
+    batched = ae.encode(out["fake"][:, 1:])["code"].reshape(BATCH, -1)
+    log(f"bairhd_step_by_step: every generated frame's tokens are those of its re-encode; "
+        f"re-encoding the 30 frames as one batch changes "
+        f"{100 * float((batched != reenc).float().mean()):.2f}% of them (bf16)")
+
+    # generate_from_image: one 256x256 frame, degraded to 64x64 and back,
+    # continued to 16 frames: K1 2 (the clip's encode, the context re-encode)
+    img = vid[:, 0]
+    run_path(records, card, base, gen, vid, 1, 2, steps,
+             run=lambda g: gen.generate_from_image(img, g, down_size=64),
+             name="bairhd_from_image_down64")
+    del gen, tr
+
+    # greedy beam search, 4 hypotheses a clip: K2 at batch 8; every frame
+    # position prunes 16 candidates to 4 and reorders the caches
+    cfg = dataclasses.replace(base, name="bairhd_beam4", gpt=dataclasses.replace(
+        base.gpt, beam_size=4, sample=False, no_sample=True))
+    _, tr, gen = build_models(cfg)
+    beams = []
+    fill_beam = tr._fill_beam
+
+    def record(*args):
+        beams.append(fill_beam(*args))
+        return beams[-1]
+
+    tr._fill_beam = record
+    out, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
+    del tr._fill_beam
+    (hyps, log_p), = beams
+    best = log_p.argmax(1)
+    if not torch.equal(out["code"], hyps[torch.arange(BATCH), best]):
+        raise AssertionError("beam: the result is not the best-scored hypothesis")
+    # each hypothesis' score against a full forward of its tokens
+    flat = hyps.reshape(-1, hyps.shape[-1])
+    with torch.no_grad():
+        logits = tr.model(flat[:, :-1])[:, size - 1:].float() / cfg.gpt.temperature
+        thresh = logits.topk(cfg.gpt.top_k, dim=-1).values[..., -1:]
+        lp = torch.log_softmax(logits.masked_fill(logits < thresh, float("-inf")), -1)
+    score = lp.gather(2, flat[:, size:, None])[..., 0].sum(1).reshape(log_p.shape)
+    rel = float(((score - log_p).abs() / log_p.abs()).max())
+    log(f"bairhd_beam4: the result is hypothesis {best.tolist()}, the best of the summed "
+        f"log-probabilities {[[round(v, 3) for v in row] for row in log_p.tolist()]}; a full "
+        f"bf16 forward of each hypothesis gives its score within {rel:.2e} (relative, limit 1e-2)")
+    if not rel < 1e-2:
+        raise AssertionError(f"beam: the tracked scores differ from the hypotheses' by {rel}")
+    del gen, tr, hyps
+
+    # deblurring: the blurred clip's 64 tokens a frame are the given state
+    # stream before each frame's 64 (8 frames fill the 1024-token window);
+    # decode steps from the first generated frame's tokens, at 192, to 1024.
+    # K1: the clip's encode, the blurred clip's, the blurred context's
+    cfg = dataclasses.replace(base, name="bairhd_deblur", gpt=dataclasses.replace(
+        base.gpt, deblurring=True, state_size=64, state_num=1024, blur_sigma=10))
+    ae, _, gen = build_models(cfg)
+    short = vid[:, :8]
+    out, _ = run_path(records, card, cfg, gen, short, 1, 3, 1024 - 3 * size)
+    if not torch.equal(out["state_code"], ae.encode(out["blur"])["code"].reshape(BATCH, -1)):
+        raise AssertionError("deblurring: the blurred clip's tokens did not come back unaltered")
+    log(f"bairhd_deblur: the blurred clip's tokens given back unaltered; blur moved the frames "
+        f"by {float((out['blur'] - short).abs().mean()):.4f} on average")
+    del gen
+
+    # class labels (101, UCF-101's classes), drawn at random: a label before
+    # the body, 7 frames of 64 decode steps
+    cfg = dataclasses.replace(base, name="bairhd_cat101", gpt=dataclasses.replace(
+        base.gpt, cat=True, num_lbl=101))
+    _, tr, gen = build_models(cfg)
+    out, _ = run_path(records, card, cfg, gen, short, 1, 2, 7 * size)
+    lbl = out["vid_lbl"]
+    if not bool(((lbl >= 0) & (lbl < 101)).all()):
+        raise AssertionError(f"class labels: drawn labels {lbl.tolist()} out of range")
+    first = [tr.generate(out["code"][:, :size], torch.Generator(device="cuda").manual_seed(16),
+                         lbl=l, total_len=2 * size)["code"][:, size:]
+             for l in (lbl, (lbl + 1) % 101)]
+    moved = float((first[0] != first[1]).float().mean())
+    log(f"bairhd_cat101: labels {lbl.tolist()}; the next label changes {100 * moved:.1f}% of "
+        "the first generated frame's tokens")
+    if not moved:
+        raise AssertionError("class labels: the label does not reach the sampling")
 
 
 def device_profile(fn):
@@ -726,13 +984,16 @@ def int8_lockstep(models, code, n0):
 def phase_reference():
     """Small fp32 configs, greedy: the GPU path (kernels) against the CPU path
     (the kernels' plain versions, which the CPU tests hold against ccvs_tpu),
-    for frame continuation and the state, p2p, unconditional and int8 modes."""
+    for frame continuation and the state, p2p, unconditional, int8, audio
+    (STFT), class-label, deblurring and beam-search modes, and step-by-step
+    generation."""
     import dataclasses
 
     import torch
-    from ccvs_tpu_torch.config import AutoencoderConfig, Config, StateConfig, TransformerConfig
+    from ccvs_tpu_torch.config import (AutoencoderConfig, Config, StateConfig, StftConfig,
+                                       TransformerConfig)
     from ccvs_tpu_torch.generate import VideoGenerator
-    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, TokenTransformer
+    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, StftModel, TokenTransformer
 
     ae_cfg = AutoencoderConfig(necf=16, necf_mult=(1, 1, 2, 2), z_size=16, z_num=64,
                                z_shape=(4, 4), max_dim=32, skip_memory=3,
@@ -741,20 +1002,33 @@ def phase_reference():
                              n_layer=2, n_head=2, n_embd=128, z_shape=(4, 4), top_k=1,
                              top_k_state=1)
     state_cfg = StateConfig(z_size=16, z_shape=(4, 4), state_hsize=8, state_size=2, state_num=8)
-    modes = {  # name: (transformer config, context frames)
-        "frame": (base, 1),
-        "state": (dataclasses.replace(base, z_len=72, z_chunk=18, state=True, state_num=8,
-                                      state_size=2, sample_state=True), 1),
-        "p2p": (dataclasses.replace(base, p2p=True), 1),
-        "unconditional": (dataclasses.replace(base, use_start_token=True, cond_len=0), 0),
-        "int8": (dataclasses.replace(base, serve_int8=True), 1),
-    }
+    stft_cfg = StftConfig(stft_size=16, stft_shape=(8, 2), stft_hsize=16, stft_num=64)
+    # a frame's 16 tokens after its 16 audio (or blurred-frame) tokens
+    stream = dict(z_len=128, z_chunk=32, state_num=64, state_size=16)
     vid = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    spec = torch.rand(2, 4, 64, 16, 1, generator=torch.Generator().manual_seed(6)) * 2 - 1
+    modes = {  # name: (transformer config, context frames, generate() arguments)
+        "frame": (base, 1, {}),
+        "state": (dataclasses.replace(base, z_len=72, z_chunk=18, state=True, state_num=8,
+                                      state_size=2, sample_state=True), 1, {}),
+        "p2p": (dataclasses.replace(base, p2p=True), 1, {}),
+        "unconditional": (dataclasses.replace(base, use_start_token=True, cond_len=0), 0, {}),
+        "int8": (dataclasses.replace(base, serve_int8=True), 1, {}),
+        "audio": (dataclasses.replace(base, stft=True, **stream), 1, {"stft": spec}),
+        "class labels": (dataclasses.replace(base, cat=True, num_lbl=7), 1,
+                         {"vid_lbl": torch.tensor([3, 5])}),
+        "deblurring": (dataclasses.replace(base, deblurring=True, blur_sigma=2, **stream), 1,
+                       {}),
+        "beam": (dataclasses.replace(base, beam_size=3, top_k=5, sample=False, no_sample=True),
+                 1, {}),
+        "step by step": (base, 1, None),
+    }
     # one set of weights for both devices (the two generators' streams differ)
     ae_cpu = FrameAutoencoder(ae_cfg, dtype=torch.float32, device="cpu").init(seed=0)
     sm_cpu = StateModel(state_cfg, device="cpu").init(seed=2)
-    for name, (gpt_cfg, n_ctx) in modes.items():
-        cfg = Config(ae=ae_cfg, gpt=gpt_cfg, state=state_cfg)
+    stft_cpu = StftModel(stft_cfg, device="cpu").init(seed=3)
+    for name, (gpt_cfg, n_ctx, kw) in modes.items():
+        cfg = Config(ae=ae_cfg, gpt=gpt_cfg, state=state_cfg, stft=stft_cfg)
         tr_cpu = TokenTransformer(gpt_cfg, dtype=torch.float32, device="cpu").init(seed=1)
         outs, models = {}, {}
         for dev in ("cuda", "cpu"):
@@ -762,13 +1036,20 @@ def phase_reference():
             ae.load_state_dict(ae_cpu.state_dict())
             tr = TokenTransformer(gpt_cfg, dtype=torch.float32, device=dev)
             tr.load_state_dict(tr_cpu.state_dict())
-            sm = None
+            sm = stft = None
             if gpt_cfg.state:
                 sm = StateModel(state_cfg, device=dev)
                 sm.load_state_dict(sm_cpu.state_dict())
-            gen = VideoGenerator(cfg, ae, tr, state_model=sm)
-            outs[dev] = gen.generate(vid.to(dev), torch.Generator(device=dev).manual_seed(0),
-                                     rec=True, n_ctx_frames=n_ctx)
+            if gpt_cfg.stft:
+                stft = StftModel(stft_cfg, device=dev)
+                stft.load_state_dict(stft_cpu.state_dict())
+            gen = VideoGenerator(cfg, ae, tr, state_model=sm, stft_model=stft)
+            g = torch.Generator(device=dev).manual_seed(0)
+            if kw is None:
+                outs[dev] = gen.generate_step_by_step(vid.to(dev), g, n_ctx_frames=n_ctx)
+            else:
+                outs[dev] = gen.generate(vid.to(dev), g, rec=True, n_ctx_frames=n_ctx,
+                                         **{k: v.to(dev) for k, v in kw.items()})
             models[dev] = ae, tr
         gpu, cpu = outs["cuda"], outs["cpu"]
         assert gpu["fake"].is_cuda
@@ -790,7 +1071,7 @@ def phase_reference():
             if key in cpu and not torch.equal(gpu[key].cpu(), cpu[key]):
                 raise AssertionError(f"reference {name}: greedy {key} differs between the GPU "
                                      "and the CPU path")
-        for key in ("fake", "rec", "state", "fake_state"):
+        for key in ("fake", "rec", "state", "fake_state", "blur"):
             if key not in cpu:
                 continue
             err = float((gpu[key].cpu() - cpu[key]).abs().max())
@@ -842,6 +1123,10 @@ def main():
         phase_reference()
     with phase("7 modes"):
         phase_modes(records, card)
+    with phase("8 drums"):
+        phase_drums(records, card)
+    with phase("9 serving"):
+        phase_serving(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -106,15 +106,26 @@ def test_generate_bf16_is_finite(pair):
 
 @pytest.mark.parametrize("preset", ["bairhd_config", "kinetics_config", "ucf101_config",
                                     "bairhd_state_config", "bairhd_p2p_config",
-                                    "bairhd_unc_config", "kinetics_p2p_config"])
+                                    "bairhd_unc_config", "kinetics_p2p_config",
+                                    "drums_config"])
 def test_presets_match_ccvs_tpu(preset):
     """The port's presets equal the JAX package's on every field the port
-    has (``port_config`` keeps the shared ones)."""
+    has (``port_config`` keeps the shared ones); the data group whole, and
+    ``PRESETS`` / ``get_config`` name the same presets."""
     want, got = getattr(jcfg, preset)(), getattr(tcfg, preset)()
     assert got.name == want.name
+    assert got.data == port_config(want.data)
+    assert dataclasses.asdict(got.data) == dataclasses.asdict(want.data)
     assert got.ae == port_config(want.ae)
     assert got.gpt == port_config(want.gpt)
     assert got.state == port_config(want.state)
+    assert got.stft == port_config(want.stft)
+    for name in ("cat", "num_lbl", "stft", "deblurring", "blur_sigma", "no_sample",
+                 "beam_size"):
+        assert getattr(got.gpt, name) == getattr(want.gpt, name)
+    assert tcfg.PRESETS.keys() == jcfg.PRESETS.keys()
+    key = next(k for k, f in jcfg.PRESETS.items() if f is getattr(jcfg, preset))
+    assert tcfg.get_config(key, name="x") == dataclasses.replace(got, name="x")
 
 
 def test_port_imports_neither_jax_nor_ccvs_tpu():

@@ -30,12 +30,16 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k,d", [(2048, 1024, 512), (77, 1000, 40), (2048, 16384, 256),
                                    (640, 16384, 256), (128, 1024, 512), (64, 128, 1),
-                                   (3072, 16384, 256)])
+                                   (3072, 16384, 256), (5760, 1024, 512), (1440, 1024, 16),
+                                   (128, 1024, 16)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
     """K1 on the card: indices equal to the plain version's, near-ties aside.
     The shapes of the rollouts: BAIR's encode (2048) and context re-encode
-    (128), Kinetics-600's (2048 and 640, and 3072 for 24 frames), the state
-    quantizer's scalar codebook (depth 1, 128 codes), and a ragged one."""
+    (128, also one re-encoded frame of step-by-step generation),
+    Kinetics-600's (2048 and 640, and 3072 for 24 frames), the state
+    quantizer's scalar codebook (depth 1, 128 codes), the drums encode of 45
+    frames (5760) and its audio quantizer (depth 16, padded to 32 by the
+    pre-pass; 1440 rows, and 128), and a ragged one."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -183,6 +187,40 @@ def test_flash_decode_cuda_graph_replay(cuda, dtype, rel, tol):
         torch.cuda.synchronize()
         _check_against_plain(out, q, k, v, p, rel, tol)
     assert flash_decode_attention.launches == before  # replays do not pass the wrapper
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel,tol", [(torch.bfloat16, 2**-7, 2e-2),
+                                           (torch.float32, 0.0, 1e-5)])
+def test_flash_decode_after_cache_reorder(cuda, dtype, rel, tol):
+    """Beam search's batch (2 clips x 4 hypotheses) after a pruning step's
+    reorder, a gather of whole batch rows into a second buffer: K2 on the
+    reordered caches gives the reordered rows of its output on the old ones,
+    exactly, and the plain version's result, launched directly and replayed
+    from a CUDA graph captured on the second buffer before the reorder."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(8, 16, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(8, 16, 1024, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(8, 16, 1024, 64, device=cuda, generator=g).to(dtype)
+    k2, v2 = torch.empty_like(k), torch.empty_like(v)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    flash_decode_attention(q, k, v, pos)  # build and configure outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = flash_decode_attention(q, k2, v2, pos)
+    for p, parent in ((0, [1, 1, 0, 3, 6, 4, 4, 4]), (511, [0, 2, 2, 2, 5, 7, 4, 6]),
+                      (1023, [3, 2, 1, 0, 7, 7, 7, 7])):
+        pos.fill_(p)
+        parent = torch.tensor(parent, device=cuda)
+        before = flash_decode_attention(q, k, v, pos)
+        torch.index_select(k, 0, parent, out=k2)
+        torch.index_select(v, 0, parent, out=v2)
+        assert torch.equal(flash_decode_attention(q[parent], k2, v2, pos), before[parent])
+        _check_against_plain(flash_decode_attention(q, k2, v2, pos), q, k2, v2, p, rel, tol)
+        graph.replay()
+        torch.cuda.synchronize()
+        _check_against_plain(replayed, q, k2, v2, p, rel, tol)
 
 
 @pytest.mark.gpu

@@ -62,7 +62,9 @@ def port_config(cfg):
     """The port's counterpart of a ccvs_tpu config dataclass (shared fields)."""
     cls = {jcfg.AutoencoderConfig: tcfg.AutoencoderConfig,
            jcfg.TransformerConfig: tcfg.TransformerConfig,
-           jcfg.StateConfig: tcfg.StateConfig}[type(cfg)]
+           jcfg.StateConfig: tcfg.StateConfig,
+           jcfg.StftConfig: tcfg.StftConfig,
+           jcfg.DataConfig: tcfg.DataConfig}[type(cfg)]
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                   if f.name in names})
