@@ -5,13 +5,14 @@ state-conditioned, point-to-point and unconditional variants, Kinetics-600,
 UCF-101 and the audio-conditioned drums, ``config.py:470-696`` there).
 
 Fields keep the JAX package's names and defaults. Only the fields the serving
-paths read are here, and the data group whole: the autoencoder options no
-preset sets (``no_corr``, ``skip_rgb``, ``keep_first``, ...), layouts,
-``emb_mode`` other than ``"temporal"`` and the training options come with the
-slices that need them.
+paths and the latent-stage trainers read are here, and the data group whole:
+the autoencoder options no preset sets (``no_corr``, ``skip_rgb``,
+``keep_first``, ...), layouts, ``emb_mode`` other than ``"temporal"`` and the
+autoencoder's training options come with the slices that need them.
 """
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -188,6 +189,31 @@ class TransformerConfig:
     # int8 weights and activations in the decode step (nn/quantized.py)
     serve_int8: bool = False
 
+    # segmentation layouts as the control stream (not ported: raises)
+    layout: bool = False
+
+    # training (train/states.py, train/steps.py): dropout and the MLP's
+    # residual noise act only in training mode
+    resid_noise: bool = False
+    resid_pdrop: float = 0.0
+    attn_pdrop: float = 0.0
+    lr: float = 1e-5
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.01
+    lr_warmup_iter: int = 1
+    lr_decay: bool = False
+    finetune_head: bool = False
+    finetune_f: Optional[float] = None
+    # recompute each block in the backward pass instead of keeping its
+    # activations (the (B, nh, L, L) attention probabilities above all)
+    remat: bool = False
+    # one update from this many equal microbatches of the batch
+    grad_accum: int = 1
+    # the parallel layer's options (not ported: raise)
+    seq_parallel: bool = False
+    fsdp: bool = False
+
     @property
     def size(self) -> int:
         return self.z_shape[0] * self.z_shape[1]
@@ -206,6 +232,10 @@ class StateConfig:
     state_hsize: int = 128
     state_size: int = 2
     state_num: int = 128
+    lr: float = 0.01
+    beta1: float = 0.5
+    beta2: float = 0.9
+    weight_decay: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -228,6 +258,24 @@ class Config:
     gpt: TransformerConfig = field(default_factory=TransformerConfig)
     state: StateConfig = field(default_factory=StateConfig)
     stft: StftConfig = field(default_factory=StftConfig)
+
+    # the trainers' bookkeeping
+    save_path: str = "./runs"
+    seed: int = 0
+    n_iter: int = 200_000
+    save_latest_freq: int = 1000
+    log_freq: Optional[int] = 2000
+    n_iter_eval: Optional[int] = None
+    # when set, every ``latest`` checkpoint also merge-writes the GPT's
+    # parameters into this fp16 npz, in the JAX package's flat layout
+    # (utils/checkpoint.py)
+    npz_mirror: str = ""
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
 
 
 def _bair_ae() -> AutoencoderConfig:

@@ -66,7 +66,7 @@ class FrameAutoencoder(nn.Module):
         ``(B[, T], h*w)``, ``z`` (quantized latents, fp32) and ``inter`` (context
         features per resolution, finest first)."""
         z, inters = self.encoder(frames.to(self.dtype))
-        z_q, idx = self.quantizer(z.float())
+        z_q, idx = self.quantizer.quantize(z.float())
         lead = idx.shape[:idx.ndim - 2]
         return {"code": idx.reshape(*lead, -1), "z": z_q, "inter": inters}
 

@@ -1,6 +1,6 @@
 """State model: the estimator and a scalar codebook over the state's
-coordinates (counterpart of ``ccvs_tpu/models/state_model.py``), serving
-only (the regression and VQ losses come with the training slice).
+coordinates (counterpart of ``ccvs_tpu/models/state_model.py``), with the
+state trainer's loss.
 
 The state tokens are the indices of a ``VectorQuantizer(state_num, 1)``: each
 coordinate is its own depth-1 vector. On CUDA that search is kernel K1, which
@@ -53,8 +53,19 @@ class StateModel(nn.Module):
         token per coordinate."""
         if state is None:
             state = self.estimate(z)
-        _, idx = self.quantizer(state.float()[..., None])
+        _, idx = self.quantizer.quantize(state.float()[..., None])
         return idx.reshape(idx.shape[0], -1)
+
+    def loss(self, z, state_target):
+        """Regression MSE of the estimate plus the scalar quantizer's VQ loss
+        on the (detached) target states (``state_model.py:78-107``); returns
+        ``(loss, {"state_reg", "state_quant", "state_perp"})``. The
+        quantizer's search is K1 on CUDA; the codebook's gradient comes
+        through its gather."""
+        pred = self.estimator(z)
+        reg = ((pred - state_target) ** 2).mean()
+        _, qloss, (perp, _) = self.quantizer(state_target.detach()[..., None])
+        return reg + qloss, {"state_reg": reg, "state_quant": qloss, "state_perp": perp}
 
     def decode(self, state_code):
         """State tokens -> state values of the same shape."""

@@ -48,7 +48,7 @@ class StftModel(nn.Module):
     def encode(self, stft):
         """Spectrogram patches ``(B[, T], 64, 16, 1)`` -> audio tokens
         ``(B, T * 16)`` (nearest codes of the latents, K1 on CUDA)."""
-        _, idx = self.quantizer(self.encoder(stft).float())
+        _, idx = self.quantizer.quantize(self.encoder(stft).float())
         return idx.reshape(idx.shape[0], -1)
 
     @torch.no_grad()

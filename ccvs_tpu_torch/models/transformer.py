@@ -1,8 +1,8 @@
-"""Latent-token transformer: KV-cached autoregressive generation with the
-sliding window, beam search and the fixed-window chunk of step-by-step
-generation (counterpart of the generation part of
-``ccvs_tpu/models/transformer.py``), over the frame stream with interleaved
-state tokens and the ``[lbl][start][cond]`` prefix.
+"""Latent-token transformer: the training loss, and KV-cached autoregressive
+generation with the sliding window, beam search and the fixed-window chunk of
+step-by-step generation (counterpart of ``ccvs_tpu/models/transformer.py``
+but the continuous transformer), over the frame stream with interleaved state
+tokens and the ``[lbl][start][cond]`` prefix.
 
 The JAX package scans its per-token decode step as one compiled program
 (``_fill_jit``, ``_fill_beam_jit``, ``_chunk_fill_jit``); here it is a Python
@@ -85,12 +85,23 @@ def _beam_state_token(cfg, generator, logits):
     return lg.argmax(-1)
 
 
+def _ce(logits, targets):
+    """Mean cross-entropy of ``targets`` under ``logits``, computed in fp32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
+
+
 class TokenTransformer(nn.Module):
-    def __init__(self, cfg, dtype=torch.bfloat16, device=None):
+    """The GPT in compute ``dtype`` with parameters in ``param_dtype``
+    (default ``dtype``). It starts in eval mode: dropout and residual noise
+    act only after ``train()``."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         with resolve_device(device):
-            self.model = GPT(cfg, dtype=dtype)
+            self.model = GPT(cfg, dtype=dtype, param_dtype=param_dtype)
+        self.eval()
 
     @property
     def device(self):
@@ -100,6 +111,34 @@ class TokenTransformer(nn.Module):
         """Seeded random parameters; returns self."""
         self.model.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
         return self
+
+    def loss(self, code, state_code=None, cond_code=None, delta=None, lbl=None, generator=None):
+        """Cross-entropy of the next token (``transformer_model.py:142-253``):
+        the input is ``code[:, :-1]`` of ``code`` cut to ``z_len``; the
+        targets are ``code`` where a start token or a label leads, else
+        ``code[:, 1:]``. With state tokens, the logits of state targets are
+        cut to ``state_num`` and scored against ``state_code[:, 1:]``, in
+        the interleaved and the ``state_front`` schedule. Returns ``(loss,
+        {"nll"[, "state_nll"]})``. ``generator`` feeds dropout and residual
+        noise in training mode."""
+        cfg = self.cfg
+        code = code[:, :cfg.z_len]
+        logits = self.model(code[:, :-1], state_code=state_code, cond_code=cond_code,
+                            delta=delta, lbl=lbl, generator=generator)
+        if state_code is not None and cfg.state_size > 0:
+            pos = np.arange(logits.shape[1]) + 1  # each logit's target position
+            if cfg.state_front:
+                is_state = pos < cfg.state_size * cfg.num_blocks
+            else:
+                is_state = pos % cfg.tot_size < cfg.state_size
+            state_i = torch.as_tensor(np.nonzero(is_state)[0], device=logits.device)
+            frame_i = torch.as_tensor(np.nonzero(~is_state)[0], device=logits.device)
+            nll = _ce(logits[:, frame_i], code)
+            state_nll = _ce(logits[:, state_i, :cfg.state_num], state_code[:, 1:])
+            return nll + state_nll, {"nll": nll, "state_nll": state_nll}
+        tgt = code if (cfg.use_start_token or cfg.cat) else code[:, 1:]
+        nll = _ce(logits[:, :tgt.shape[1]], tgt)
+        return nll, {"nll": nll}
 
     @torch.no_grad()
     def generate(self, code, generator, state_code=None, cond_code=None, delta=None, lbl=None,

@@ -8,8 +8,18 @@ Parameter names follow the flax modules (``tok_emb``, ``state_tok_emb``,
 ``core.blocks.<layer>.{ln1, attn.{query, key, value, proj}, ln2, fc1, fc2}``,
 ``core.ln_f``, ``head``); the JAX package stacks the blocks along a leading
 layer axis, the port keeps one module per layer (see ``weights.py``).
-Parameters are held in the model's dtype, except the final LayerNorm's, which
-stay fp32 as the JAX package's one-time bf16 cast leaves them.
+Parameters are held in ``param_dtype`` and cast to the compute ``dtype`` where
+they are used (flax's ``param_dtype`` / ``dtype``): serving holds them in the
+compute dtype, so the casts are skipped, except the final LayerNorm's, which
+stay fp32 as the JAX package's one-time bf16 cast leaves them; training holds
+fp32 master weights under bf16 compute.
+
+In training mode (``module.train()``) attention-probability and residual
+dropout (``attn_pdrop``, ``resid_pdrop``) and the MLP's residual noise
+(``resid_noise``, scaled by the learnt ``noise_weight``) draw from the
+``torch.Generator`` given to :meth:`GPT.forward`; with ``remat`` each block is
+recomputed in the backward pass (``torch.utils.checkpoint``), its random
+draws replayed from the generator's state.
 
 The KV cache is ``(k, v)`` of ``(n_layer, B, nh, L, hd)`` tensors, written in
 place (the JAX package returns updated copies). The single-token attention
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ccvs_tpu_torch.ops.attention import flash_decode_attention
 
@@ -94,8 +105,20 @@ def _infer_schedule(cfg, n_frame_tokens, n_state_tokens=0):
 
 def _dense(layer, x):
     # F.linear, not the module's call, which costs more host time: the
-    # per-token decode loop is bound by the host
-    return F.linear(x, layer.weight, layer.bias)
+    # per-token decode loop is bound by the host. Parameters held in another
+    # dtype than x's (fp32 master weights) are cast at use.
+    w, b = layer.weight, layer.bias
+    if w.dtype != x.dtype:
+        w = w.to(x.dtype)
+        b = None if b is None else b.to(x.dtype)
+    return F.linear(x, w, b)
+
+
+def _dropout(x, p, generator):
+    """Inverted dropout (flax's ``Dropout``): each entry kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.Module):
@@ -115,14 +138,15 @@ class LayerNorm(nn.Module):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
         c = cfg.n_embd
-        self.query, self.key, self.value, self.proj = (nn.Linear(c, c, dtype=dtype)
-                                                       for _ in range(4))
+        self.query, self.key, self.value, self.proj = (
+            nn.Linear(c, c, dtype=param_dtype or dtype) for _ in range(4))
         self.n_head, self.dtype = cfg.n_head, dtype
+        self.attn_pdrop, self.resid_pdrop = cfg.attn_pdrop, cfg.resid_pdrop
 
-    def forward(self, x, cache=None, index=0):
+    def forward(self, x, cache=None, index=0, generator=None):
         """x ``(B, t, C)``. With ``cache`` ``(ck, cv)`` of ``(B, nh, L, hd)``,
         the new keys and values are written at ``index`` (in place) and the
         queries attend to cache positions ``<= index + their offset``.
@@ -153,37 +177,86 @@ class CausalSelfAttention(nn.Module):
             causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
             att = att.masked_fill(~causal, -1e9)
             att = torch.softmax(att.float(), dim=-1).to(dt)
+            if self.training and self.attn_pdrop > 0:
+                att = _dropout(att, self.attn_pdrop, generator)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return _dense(self.proj, y.reshape(b, t, c))
+        y = _dense(self.proj, y.reshape(b, t, c))
+        if self.training and self.resid_pdrop > 0:
+            y = _dropout(y, self.resid_pdrop, generator)
+        return y
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.ln1 = LayerNorm(cfg.n_embd, dtype)
-        self.attn = CausalSelfAttention(cfg, dtype)
-        self.ln2 = LayerNorm(cfg.n_embd, dtype)
-        self.fc1 = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, dtype=dtype)
-        self.fc2 = nn.Linear(4 * cfg.n_embd, cfg.n_embd, dtype=dtype)
+        pdt = param_dtype or dtype
+        self.ln1 = LayerNorm(cfg.n_embd, dtype, pdt)
+        self.attn = CausalSelfAttention(cfg, dtype, pdt)
+        self.ln2 = LayerNorm(cfg.n_embd, dtype, pdt)
+        self.fc1 = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, dtype=pdt)
+        self.fc2 = nn.Linear(4 * cfg.n_embd, cfg.n_embd, dtype=pdt)
+        self.resid_pdrop, self.resid_noise = cfg.resid_pdrop, cfg.resid_noise
+        if cfg.resid_noise:
+            self.noise_weight = nn.Parameter(torch.ones(1, dtype=torch.float32))
 
-    def forward(self, x, cache=None, index=0):
-        x = x + self.attn(self.ln1(x), cache=cache, index=index)
-        return x + _dense(self.fc2, F.gelu(_dense(self.fc1, self.ln2(x))))
+    def forward(self, x, cache=None, index=0, generator=None):
+        x = x + self.attn(self.ln1(x), cache=cache, index=index, generator=generator)
+        h = _dense(self.fc1, self.ln2(x))
+        if self.training and self.resid_noise:
+            # one N(0, 1) draw per (batch, position), broadcast over channels
+            noise = torch.randn((*h.shape[:2], 1), generator=generator, device=h.device,
+                                dtype=h.dtype)
+            h = h + self.noise_weight.to(h.dtype) * noise
+        h = _dense(self.fc2, F.gelu(h))
+        if self.training and self.resid_pdrop > 0:
+            h = _dropout(h, self.resid_pdrop, generator)
+        return x + h
 
 
 class GPTCore(nn.Module):
     """The blocks and the final LayerNorm."""
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(cfg, dtype) for _ in range(cfg.n_layer))
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(Block(cfg, dtype, param_dtype) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, dtype, param_dtype=torch.float32)
 
-    def forward(self, emb, cache=None, index=0):
+    def forward(self, emb, cache=None, index=0, generator=None):
         x = emb
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled() and cache is None
         for layer, block in enumerate(self.blocks):
-            x = block(x, None if cache is None else (cache[0][layer], cache[1][layer]), index)
+            if remat:
+                x = _remat_block(block, x, generator)
+            else:
+                x = block(x, None if cache is None else (cache[0][layer], cache[1][layer]), index,
+                          generator)
         return self.ln_f(x)
+
+
+def _remat_block(block, x, generator):
+    """``block(x)`` whose activations are recomputed in the backward pass.
+    The recomputation replays the forward's random draws: it starts from the
+    generator's state before the block, and leaves the generator where it
+    found it (also when the checkpoint stops it early, once the tensors it
+    needs are back), so later draws go on from the forward's end state."""
+    if generator is None:
+        return checkpoint(block, x, use_reentrant=False)
+    start, end = generator.get_state(), []
+
+    def run(x):
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            y = block(x, generator=generator)
+            end.append(generator.get_state())
+        finally:
+            generator.set_state(now)
+        return y
+
+    y = checkpoint(run, x, use_reentrant=False)
+    generator.set_state(end[0])
+    return y
 
 
 def cache_to_layers(cache):
@@ -215,24 +288,24 @@ class GPT(nn.Module):
     vocabulary and spatial embedding (``state_tok_emb``, ``state_s_emb``).
     The head spans both vocabularies."""
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        d = cfg.n_embd
-        self.tok_emb = nn.Embedding(cfg.z_num, d, dtype=dtype)
+        d, pdt = cfg.n_embd, param_dtype or dtype
+        self.tok_emb = nn.Embedding(cfg.z_num, d, dtype=pdt)
         self.has_state = cfg.state_num > 0 and cfg.state_size > 0
         if self.has_state:
-            self.state_tok_emb = nn.Embedding(cfg.state_num, d, dtype=dtype)
+            self.state_tok_emb = nn.Embedding(cfg.state_num, d, dtype=pdt)
         if cfg.use_start_token:
-            self.start_tok_emb = nn.Parameter(torch.zeros(1, d, dtype=dtype))
+            self.start_tok_emb = nn.Parameter(torch.zeros(1, d, dtype=pdt))
         if cfg.cat:
-            self.lbl_emb = nn.Embedding(cfg.num_lbl, d, dtype=dtype)
-        self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, d, dtype=dtype))
-        self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, d, dtype=dtype))
+            self.lbl_emb = nn.Embedding(cfg.num_lbl, d, dtype=pdt)
+        self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, d, dtype=pdt))
+        self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, d, dtype=pdt))
         if cfg.state_size > 0:
-            self.state_s_emb = nn.Parameter(torch.zeros(1, cfg.state_size, d, dtype=dtype))
-        self.core = GPTCore(cfg, dtype)
-        self.head = nn.Linear(d, max(cfg.z_num, cfg.state_num), bias=False, dtype=dtype)
+            self.state_s_emb = nn.Parameter(torch.zeros(1, cfg.state_size, d, dtype=pdt))
+        self.core = GPTCore(cfg, dtype, param_dtype)
+        self.head = nn.Linear(d, max(cfg.z_num, cfg.state_num), bias=False, dtype=pdt)
 
     def reset_parameters(self, generator):
         """Seeded init: linear and embedding weights N(0, 0.02), the start
@@ -248,21 +321,28 @@ class GPT(nn.Module):
 
     # ---------------- embeddings ----------------
 
+    def _c(self, x):
+        """``x`` in the compute dtype (a no-op where the parameters are held in it)."""
+        return x if x.dtype == self.dtype else x.to(self.dtype)
+
     def _frame_pos_emb(self, s_idx, t_idx, delta=None):
         """Frame-token positional embedding; ``delta`` ``(B,)`` shifts the
         temporal index per batch element (then ``(B, L, D)``)."""
         t = t_idx if delta is None else t_idx[None, :] + delta[:, None]
-        return self.s_emb[0][s_idx] + self.t_emb[0][t]
+        return self._c(self.s_emb[0][s_idx] + self.t_emb[0][t])
 
     def _state_pos_emb(self, s_idx, t_idx):
         if torch.is_tensor(s_idx):
             # a buffer's frame positions have spatial indices past the state's;
             # their state embedding is computed and discarded
             s_idx = s_idx.clamp_max(self.cfg.state_size - 1)
-        return self.state_s_emb[0][s_idx] + self.t_emb[0][t_idx]
+        return self._c(self.state_s_emb[0][s_idx] + self.t_emb[0][t_idx])
 
     def _tok(self, tokens):
-        return F.embedding(tokens, self.tok_emb.weight)
+        return self._c(F.embedding(tokens, self.tok_emb.weight))
+
+    def _state_tok(self, tokens):
+        return self._c(F.embedding(tokens, self.state_tok_emb.weight))
 
     def _index(self, a):
         return torch.as_tensor(a, device=self.head.weight.device).long()
@@ -279,8 +359,7 @@ class GPT(nn.Module):
         emb = self._tok(frame_tok) + self._frame_pos_emb(s_idx, t_idx)[None]
         if state_code is not None and len(sched.state_pos) > 0:
             state_tok = state_code[:, self._index(np.clip(src, 0, state_code.shape[1] - 1))]
-            se = (F.embedding(state_tok, self.state_tok_emb.weight)
-                  + self._state_pos_emb(s_idx, t_idx)[None])
+            se = self._state_tok(state_tok) + self._state_pos_emb(s_idx, t_idx)[None]
             is_state = self._index(sched.kind == KIND_STATE).bool()
             emb = torch.where(is_state[None, :, None], se, emb)
         return emb
@@ -298,9 +377,9 @@ class GPT(nn.Module):
         ``lbl`` ``(B,)`` leads it in the class-conditional mode."""
         parts = []
         if self.cfg.cat and lbl is not None:
-            parts.append(F.embedding(lbl, self.lbl_emb.weight)[:, None])
+            parts.append(self._c(F.embedding(lbl, self.lbl_emb.weight))[:, None])
         if self.cfg.use_start_token:
-            parts.append(self.start_tok_emb[None].expand(b, 1, -1))
+            parts.append(self._c(self.start_tok_emb)[None].expand(b, 1, -1))
         if cond_code is not None and cond_code.shape[1] > 0:
             parts.append(self._cond_emb(cond_code, delta))
         return torch.cat(parts, dim=1) if parts else None
@@ -309,10 +388,12 @@ class GPT(nn.Module):
         return (int(self.cfg.cat and lbl is not None) + int(self.cfg.use_start_token)
                 + (0 if cond_code is None else cond_code.shape[1]))
 
-    def forward(self, code, state_code=None, cond_code=None, delta=None, lbl=None, sched=None):
+    def forward(self, code, state_code=None, cond_code=None, delta=None, lbl=None, sched=None,
+                generator=None):
         """Full causal forward over the prefix and the body of frame tokens
         ``code`` ``(B, n)`` (and state tokens ``state_code``) -> logits from
-        the label and start token (where there are) on, ``(B, P' + body, V)``."""
+        the label and start token (where there are) on, ``(B, P' + body, V)``.
+        ``generator`` feeds dropout and residual noise in training mode."""
         if sched is None:
             sched = _infer_schedule(self.cfg, code.shape[1],
                                     0 if state_code is None else state_code.shape[1])
@@ -321,7 +402,7 @@ class GPT(nn.Module):
         if prefix is not None:
             emb = torch.cat([prefix, emb], dim=1)
         t_cond = 0 if cond_code is None else cond_code.shape[1]
-        return self.head_apply(self.core(emb))[:, t_cond:]
+        return self.head_apply(self.core(emb, generator=generator))[:, t_cond:]
 
     def init_cache(self, b, max_len, dtype=None):
         """Zero cache, its length rounded up to a multiple of 128."""
@@ -356,7 +437,7 @@ class GPT(nn.Module):
             return self._tok(token.clamp_max(cfg.z_num - 1)) + self._frame_pos_emb(s_idx, t_idx)
 
         def state():
-            return (F.embedding(token.clamp_max(cfg.state_num - 1), self.state_tok_emb.weight)
+            return (self._state_tok(token.clamp_max(cfg.state_num - 1))
                     + self._state_pos_emb(s_idx, t_idx))
 
         if not self.has_state:

@@ -6,6 +6,12 @@ kernel K1 (``csrc/vq.cu``, the port of the Pallas kernel
 it runs :func:`vq_indices_plain`, which computes the same function in plain
 PyTorch. :func:`vq_indices_split_plain` mirrors the kernel's split arithmetic
 for the tests.
+
+Gradients follow the JAX package's contract (``ccvs_tpu/ops/vq_pallas.py``,
+``_indices_nograd``): the indices carry none, so the search reads detached
+tensors, and the codebook's gradient comes through the gather
+``codebook.index_select(0, idx)`` outside the kernel; ``z``'s through the
+straight-through value of :func:`vq_st`.
 """
 
 import torch
@@ -51,7 +57,9 @@ def vq_indices(z, codebook):
     int32. CPU tensors take :func:`vq_indices_plain`; CUDA tensors launch K1
     (counted in ``vq_indices.launches``): its pre-pass, the tensor-core
     search and the merge of the code splits, with their scratch allocated
-    here."""
+    here. Integer indices carry no gradient: both inputs are read detached,
+    so a ``z`` or codebook under autograd is neither copied nor traced."""
+    z, codebook = z.detach(), codebook.detach()
     if z.device.type == "cpu" and codebook.device.type == "cpu":
         return vq_indices_plain(z, codebook)
     if z.device.type != "cuda" or codebook.device != z.device:
@@ -118,3 +126,21 @@ def vq_embed(indices, codebook, mult=1):
         s[-2] //= mult
         z = z.reshape(s)
     return z
+
+
+def vq_st(z, z_q):
+    """Straight-through estimator: the value of ``z_q``, the gradient to ``z``."""
+    return z + (z_q - z).detach()
+
+
+def vq_loss(z, z_q, beta=0.25):
+    """Codebook and commitment loss (``quantize.py:60-61``):
+    ``mean((sg(z_q) - z)^2) + beta * mean((z_q - sg(z))^2)``."""
+    return ((z_q.detach() - z) ** 2).mean() + beta * ((z_q - z.detach()) ** 2).mean()
+
+
+def vq_perplexity(indices, n_e):
+    """Codebook-usage perplexity ``exp(-sum p log(p + 1e-10))`` of the
+    indices' histogram (``quantize.py:67-68``), fp32."""
+    p = torch.bincount(indices.reshape(-1), minlength=n_e).float() / indices.numel()
+    return torch.exp(-(p * torch.log(p + 1e-10)).sum())

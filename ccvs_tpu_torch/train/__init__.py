@@ -1,2 +1,3 @@
-"""Trainers of the port (counterpart of ``ccvs_tpu/train``); so far
-only what serving shares with them."""
+"""Trainers of the port (counterpart of ``ccvs_tpu/train``): the latent
+stage, the transformer trainer and the state-estimator trainer, on a frozen
+autoencoder."""

@@ -21,10 +21,17 @@ One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
 
 Every parameter of the module must be filled and every key must land, or
 loading raises.
+
+:func:`export_params` is the reverse: a module's parameters as that flat
+dict, so that parameters the port trains load into the JAX package
+(``npz_params.unflatten_params``).
 """
+
+import re
 
 import numpy as np
 import torch
+from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -74,3 +81,36 @@ def load_npz(module, path, prefix=""):
     """:func:`load_params` from an ``.npz`` file."""
     with np.load(path) as z:
         return load_params(module, {k: z[k] for k in z.files}, prefix)
+
+
+def export_params(module):
+    """``module``'s parameters as the JAX package's flat ``{"a/b/c": array}``
+    (fp32 numpy): ``nn.Linear`` ``weight (out, in)`` -> ``kernel (in,
+    out)``, ``nn.Embedding`` ``weight`` -> ``embedding``, a LayerNorm's
+    ``weight`` -> ``scale``, and the per-layer ``blocks.<layer>`` stacked
+    back along a leading axis under ``blocks/block``. The reverse of
+    :func:`load_params`."""
+    from ccvs_tpu_torch.nn.gpt import LayerNorm
+
+    leaf = {nn.Linear: "kernel", nn.Embedding: "embedding", LayerNorm: "scale",
+            nn.LayerNorm: "scale"}
+    flat = {}
+    for mname, m in module.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            a = p.detach().float().cpu().numpy()
+            if pname == "weight" and type(m) in leaf:
+                pname = leaf[type(m)]
+                if pname == "kernel":
+                    a = np.ascontiguousarray(a.T)
+            flat[(f"{mname}." if mname else "") + pname] = a
+    out, layers = {}, {}
+    for name, a in flat.items():
+        m = re.fullmatch(r"(.*\.)?blocks\.(\d+)\.(.*)", name)
+        if m is None:
+            out[name.replace(".", "/")] = a
+        else:
+            key = f"{m.group(1) or ''}blocks.block.{m.group(3)}".replace(".", "/")
+            layers.setdefault(key, {})[int(m.group(2))] = a
+    for key, per_layer in layers.items():
+        out[key] = np.stack([per_layer[i] for i in range(len(per_layer))])
+    return out

@@ -10,7 +10,7 @@ Phases, each printing its wall time:
    process per source, started together, with the registers, shared memory
    and spills of each kernel;
 2. kernels: each kernel against its plain PyTorch version at the serving
-   paths' shapes (K2 with its position an int32 on the device, with caches of
+   and training paths' shapes (K2 with its position an int32 on the device, with caches of
    1024 rows at positions 0, 63, 64, 511 and 1023, of 1152 at 0, 1023, 1055
    and 1151, of 1280 at 0, 1151 and 1279, each also captured once in a CUDA
    graph and replayed at those positions; K2 at beam search's batch of 8
@@ -56,7 +56,20 @@ Phases, each printing its wall time:
    hypothesis, the scores those of a full forward), ``generate_from_image``
    with ``down_size`` 64, then deblurring (the blurred clip's tokens given
    back) and drawn class labels (a label shown to move the tokens) at 8
-   frames; each run once with its launches counted as in phase 3.
+   frames; each run once with its launches counted as in phase 3;
+10. train: (a) small fp32 configurations, 3 steps of the transformer step
+   (plain, state-interleaved, point-to-point, ``grad_accum=2``) and of the
+   state step on the card against the CPU (metrics within 1e-4, parameters
+   within the Adam bound of :func:`adam_close`, the first update zero);
+   (b) the full-width BAIR-256 transformer step (24 x 1024 GPT, fp32
+   parameters, bf16 compute, 16 clips of 16 frames encoded by the bf16
+   autoencoder), 2 warm-up and 10 timed steps on one batch, K1 once a step,
+   with seconds a step, tokens a second, the encode / GPT split (CUDA
+   events) and peak memory; (c) the full-width state step (96 images, K1
+   twice, the state quantizer's indices the plain search's and the
+   codebook's gradient that of the gather alone);
+   (d) both trainers' ``run`` and resume, the checkpoint's state equal to
+   the trainer's, the npz mirror holding the JAX package's GPT tree.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -64,6 +77,8 @@ without a result line. Without a CUDA device the script fails at once.
 """
 
 import json
+import os
+import random
 import statistics
 import subprocess
 import time
@@ -204,15 +219,18 @@ def phase_kernels(records):
     # the context re-encode (BAIR: 1024 codes of 512; Kinetics-600: 16384 of
     # 256, and 2 x 24 frames), the state quantizer's 2 x 16 frames x 2
     # coordinates against 128 scalar codes, one frame's re-encode (step by
-    # step), the drums encode of 2 x 45 frames and its 15 context frames, and
-    # the drums audio quantizer's 2 x 45 frames x 16 latents of depth 16
-    # against 1024 codes; timed but for the context re-encodes
+    # step), the drums encode of 2 x 45 frames and its 15 context frames, the
+    # drums audio quantizer's 2 x 45 frames x 16 latents of depth 16 against
+    # 1024 codes, and training's (phase 10): the BAIR step's encode of 16 x
+    # 16 frames, the state step's of 96 images and its quantizer of 96 x 2
+    # states; timed but for the context re-encodes
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
                            (3072, 256, 16384, True), (64, 1, 128, True),
                            (5760, 512, 1024, True), (1920, 512, 1024, False),
-                           (1440, 16, 1024, True)):
+                           (1440, 16, 1024, True), (16384, 512, 1024, True),
+                           (6144, 512, 1024, True), (192, 1, 128, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -509,6 +527,32 @@ def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps, run=None, name=N
         f"steps ({1e3 * dt / max(k2_steps, 1):.2f} ms each, all in), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}, on {card}")
     return out, dt
+
+
+def decode_ops_per_layer(tr, code):
+    """PyTorch operations dispatched by one layer of one decode step (the
+    step's host cost is ~25 eager calls a layer; K2 goes through ctypes and
+    is not among them)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    model = tr.model
+    with torch.no_grad():
+        cache = model.init_cache(BATCH, 128)
+        emb1 = model.embed_one(code[:, 0], 0, 0)[:, None]
+        pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+        block = model.core.blocks[0]
+        block(emb1, (cache[0][0], cache[1][0]), pos)
+        with Count():
+            block(emb1, (cache[0][0], cache[1][0]), pos)
+    return Count.n
 
 
 def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=None):
@@ -1081,6 +1125,419 @@ def phase_reference():
                 raise AssertionError(f"reference {name} {key}: GPU and CPU differ by {err} > 1e-3")
 
 
+# ---------------- phase 10: training ----------------
+
+
+def small_train_config(**gpt):
+    """Phase 10's small configuration: phase 6's autoencoder widths at 64 px
+    (8x8 tokens a frame), a 2-layer GPT of width 128 with 2 heads over 4
+    frames, batches of 4 clips of 4 frames (8 images for the state step)."""
+    import dataclasses
+
+    from ccvs_tpu_torch.config import (AutoencoderConfig, Config, DataConfig, StateConfig,
+                                       TransformerConfig)
+
+    ae = AutoencoderConfig(necf=16, necf_mult=(1, 1, 2, 2), z_size=16, z_num=64, z_shape=(8, 8),
+                           max_dim=64, skip_memory=3, skip_context=(1, 2, 3))
+    g = TransformerConfig(z_num=64, z_len=256, z_chunk=64, num_blocks=4, cond_len=64, n_layer=2,
+                          n_head=2, n_embd=128, z_shape=(8, 8), lr=1e-3)
+    data = DataConfig(dataset="synthetic", max_dim=64, true_dim=64, vid_len=4, batch_size_vid=4,
+                      batch_size_img=8, num_workers=2, load_state=True)
+    state = StateConfig(z_size=16, z_shape=(8, 8), state_hsize=8, state_size=2, state_num=8)
+    return Config(name="train_small", data=data, ae=ae, gpt=dataclasses.replace(g, **gpt),
+                  state=state, n_iter=4, save_latest_freq=2, log_freq=None, n_iter_eval=2)
+
+
+# the JAX package's GPT tree of small_train_config() (key: shape), as the
+# trainer's npz mirror must hold it; tests/test_torch_train.py derives it
+# from ccvs_tpu
+MIRROR_KEYS = {
+    "core/blocks/block/attn/key/bias": (2, 128),
+    "core/blocks/block/attn/key/kernel": (2, 128, 128),
+    "core/blocks/block/attn/proj/bias": (2, 128),
+    "core/blocks/block/attn/proj/kernel": (2, 128, 128),
+    "core/blocks/block/attn/query/bias": (2, 128),
+    "core/blocks/block/attn/query/kernel": (2, 128, 128),
+    "core/blocks/block/attn/value/bias": (2, 128),
+    "core/blocks/block/attn/value/kernel": (2, 128, 128),
+    "core/blocks/block/fc1/bias": (2, 512),
+    "core/blocks/block/fc1/kernel": (2, 128, 512),
+    "core/blocks/block/fc2/bias": (2, 128),
+    "core/blocks/block/fc2/kernel": (2, 512, 128),
+    "core/blocks/block/ln1/bias": (2, 128),
+    "core/blocks/block/ln1/scale": (2, 128),
+    "core/blocks/block/ln2/bias": (2, 128),
+    "core/blocks/block/ln2/scale": (2, 128),
+    "core/ln_f/bias": (128,),
+    "core/ln_f/scale": (128,),
+    "head/kernel": (128, 64),
+    "s_emb": (1, 64, 128),
+    "t_emb": (1, 4, 128),
+    "tok_emb/embedding": (64, 128),
+}
+
+
+def adam_close(got, want, start, grad, lr, steps, scale):
+    """Largest excess of ``|got - want|`` over its bound, for parameters
+    after ``steps`` Adam updates from ``start`` on two devices. Adam divides
+    the first moment by the root of the second, so where the gradient is
+    near zero (``grad``, the first step's, within 1e-3 of ``scale``, the
+    model's largest gradient entry) rounding decides the update's sign and
+    an entry may move by up to ``lr`` a step either way: there the bound is
+    ``lr * steps``. Elsewhere the updates agree within rtol 1e-3 plus two
+    fp32 spacings of the parameter a step."""
+    import torch
+
+    got, want, start, grad = (t.detach().double().cpu() for t in (got, want, start, grad))
+    near_zero = grad.abs() <= 1e-3 * scale
+    ulps = 2 * steps * torch.finfo(torch.float32).eps * want.abs()
+    bound = torch.where(near_zero, torch.full_like(want, lr * steps),
+                        1e-3 * (want - start).abs() + ulps)
+    return float(((got - want).abs() - bound).max())
+
+
+def _train_data(cfg, phase_name, n, load_vid=True):
+    """``n`` consecutive batches of ``cfg.data``'s dataset, collated."""
+    from ccvs_tpu_torch.data import create_dataset, group_collate
+
+    ds = create_dataset(cfg.data, phase=phase_name, load_vid=load_vid)
+    b = cfg.data.batch_size_vid if load_vid else cfg.data.batch_size_img
+    return [group_collate([ds[i * b + j] for j in range(b)]) for i in range(n)]
+
+
+def _trainer_pair(cfg, state_trainer=False):
+    """The same seeded trainer on the card and on the CPU (fp32):
+    ``[(device, trainer, train state)]``, the card's first."""
+    import torch
+    from ccvs_tpu_torch.models import FrameAutoencoder, StateModel
+    from ccvs_tpu_torch.train.state_trainer import StateEstimatorTrainer
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    ae_cpu = FrameAutoencoder(cfg.ae, dtype=torch.float32, device="cpu").init(seed=0)
+    sm_cpu = StateModel(cfg.state, device="cpu").init(seed=2)
+    out = []
+    for dev in ("cuda", "cpu"):
+        ae = FrameAutoencoder(cfg.ae, dtype=torch.float32, device=dev)
+        ae.load_state_dict(ae_cpu.state_dict())
+        if state_trainer:
+            tr = StateEstimatorTrainer(cfg, ae, device=dev)
+            tr.model.load_state_dict(sm_cpu.state_dict())
+            out.append((dev, tr, tr.init_state(tr.model)))
+            continue
+        sm = None
+        if cfg.gpt.state:
+            sm = StateModel(cfg.state, device=dev)
+            sm.load_state_dict(sm_cpu.state_dict())
+        tr = TransformerTrainer(cfg, ae, state_model=sm, dtype=torch.float32, device=dev)
+        if out:
+            tr.transformer.load_state_dict(out[0][1].transformer.state_dict())
+        else:
+            tr.transformer.init(seed=1)
+        out.append((dev, tr, tr.init_state()))
+    return out
+
+
+def _parity(name, pair, batches, run_step, lr, warmup):
+    """Three steps of ``run_step(trainer, state, batch)`` on each device:
+    the metrics within rtol 1e-4 (fp32 sums in another order), the
+    parameters by :func:`adam_close` at ``lr``; with ``warmup`` the first
+    update exactly zero (optax's warmup schedule at count 0)."""
+    import torch
+
+    res = []
+    for dev, tr, state in pair:
+        module = state.params
+        start = {n: p.detach().clone() for n, p in module.named_parameters()}
+        metrics, grad1 = [], None
+        for i, batch in enumerate(batches):
+            state, m = run_step(tr, state, batch, dev)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                grad1 = {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+                if warmup:
+                    moved = [n for n, p in module.named_parameters() if not torch.equal(p, start[n])]
+                    if moved:
+                        raise AssertionError(f"train {name} on {dev}: the first update (lr 0) "
+                                             f"moved {moved[:3]}")
+        res.append((metrics, dict(module.named_parameters()), start, grad1))
+    (mg, pg, start, _), (mc, pc, _, grad1) = res
+    worst_m = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-12) for g, c in zip(mg, mc) for k in c)
+    if not worst_m <= 1e-4:
+        raise AssertionError(f"train {name}: metrics GPU {mg} vs CPU {mc}")
+    scale = max(float(g.abs().max()) for g in grad1.values())
+    worst_p = max(adam_close(pg[n], pc[n], start[n], grad1[n], lr, len(batches), scale)
+                  for n in pc)
+    if not worst_p <= 0:
+        raise AssertionError(f"train {name}: parameters GPU vs CPU beyond the Adam bound by "
+                             f"{worst_p:.3g}")
+    log(f"train {name}: 3 steps GPU vs CPU, metrics within {worst_m:.3g} relative "
+        f"(tolerance 1e-4), parameters within the Adam bound (margin {-worst_p:.3g}); "
+        f"nll / loss by step {[round(m.get('nll', m.get('state_reg', 0.0)), 5) for m in mg]}")
+
+
+def _transformer_step(tr, state, batch, dev):
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+
+    return tr.step(state, tr.encode_batch(to_device(batch, dev)))
+
+
+def _state_step(tr, state, batch, dev):
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+
+    return tr.step(state, to_device(batch, dev))
+
+
+def phase_train_reference():
+    """(a) Small fp32 configurations: the transformer step in the plain,
+    state-interleaved, point-to-point and ``grad_accum=2`` forms, and the
+    state step, each 3 steps on the card against the CPU."""
+    import dataclasses
+
+    forms = {"plain": {}, "state": dict(z_len=264, state=True, state_num=8, state_size=2),
+             "p2p": dict(p2p=True), "grad_accum=2": dict(grad_accum=2)}
+    for name, over in forms.items():
+        cfg = small_train_config(**over)
+        if cfg.gpt.p2p:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, p2p_len=cfg.data.vid_len))
+        _parity(name, _trainer_pair(cfg), _train_data(cfg, "train", 3), _transformer_step,
+                cfg.gpt.lr, warmup=True)
+    cfg = small_train_config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, n_consecutive_img=1))
+    _parity("state step", _trainer_pair(cfg, state_trainer=True),
+            _train_data(cfg, "train", 3, load_vid=False), _state_step, cfg.state.lr,
+            warmup=False)
+
+
+def _events():
+    import torch
+
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def phase_train_bairhd(records, card):
+    """(b) The full-width BAIR-256 transformer step: a 24 x 1024 GPT with
+    fp32 parameters under bf16 compute, on batches of 16 clips of 16
+    frames encoded by the bf16 autoencoder; 2 warm-up and 10 timed steps on
+    one fixed batch, K1 once a step."""
+    import dataclasses
+    import math
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    base = bairhd_config()
+    cfg = base.replace(name="train_bairhd", data=dataclasses.replace(base.data, dataset="synthetic"))
+    torch.cuda.empty_cache()  # the serving phases' cached blocks
+    t0 = time.perf_counter()
+    batch = to_device(_train_data(cfg, "train", 1)[0], "cuda")
+    t_data = time.perf_counter() - t0
+    ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0)
+    tr = TransformerTrainer(cfg, ae)
+    tr.transformer.init(seed=1)
+    state = tr.init_state()
+    n_params = sum(p.numel() for p in tr.transformer.parameters())
+    b, t = batch["vid"].shape[:2]
+    n_tokens = b * (t * cfg.gpt.size - 1)
+    log(f"train bairhd: {n_params / 1e6:.1f} M GPT parameters in fp32, bf16 compute; batch "
+        f"{tuple(batch['vid'].shape)} (made in {t_data:.2f} s), {n_tokens} input tokens a step")
+    torch.cuda.reset_peak_memory_stats()
+    losses, enc_ms, step_ms, wall = [], [], [], []
+    for i in range(12):
+        if i == 2:
+            vq_indices.launches = 0
+            t_timed = time.perf_counter()
+        (e0, e1), (s0, s1) = _events(), _events()
+        w0 = time.perf_counter()
+        e0.record()
+        tokens = tr.encode_batch(batch)
+        e1.record()
+        s0.record()
+        state, m = tr.step(state, tokens)
+        s1.record()
+        losses.append(float(m["nll"]))  # waits for the step
+        wall.append(time.perf_counter() - w0)
+        enc_ms.append(e0.elapsed_time(e1))
+        step_ms.append(s0.elapsed_time(s1))
+    dt = _synced_since(t_timed)
+    launches = vq_indices.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 10:
+        raise AssertionError(f"train bairhd: K1 launched {launches} times in 10 steps, expected 10")
+    records["vq_argmin"]["launches_by_rollout"]["train_bairhd (10 steps)"] = launches
+    enc, stp = statistics.median(enc_ms[2:]), statistics.median(step_ms[2:])
+    log(f"train bairhd: {dt / 10:.4f} s a step over 10 steps ({n_tokens * 10 / dt:.0f} tokens/s); "
+        f"median encode {enc:.2f} ms (CUDA events), GPT step {stp:.2f} ms; peak memory "
+        f"{peak:.2f} GiB; remat {cfg.gpt.remat}; K1 {launches} launches; on {card}")
+    log(f"train bairhd: nll by step {[round(x, 4) for x in losses]}; host wall by step "
+        f"{[round(x, 3) for x in wall]} s")
+    # at init the head's rows are N(0, 0.02) and the final LayerNorm's output
+    # has norm sqrt(n_embd), so a position's logits are iid N(0, s^2), s =
+    # 0.02 sqrt(n_embd): the cross-entropy is ln V + s^2 / 2 less the target's
+    # logit, N(0, s^2) for one distinct (input, target) pair; a random
+    # autoencoder gives a batch of few distinct codes, so hold the loss to
+    # 3 s of ln V + s^2 / 2
+    s_init = 0.02 * math.sqrt(cfg.gpt.n_embd)
+    expect = math.log(cfg.gpt.z_num) + s_init**2 / 2
+    log(f"train bairhd: loss at step 0 {losses[0]:.4f}; ln {cfg.gpt.z_num} = "
+        f"{math.log(cfg.gpt.z_num):.4f}, the init's expectation ln V + s^2 / 2 = {expect:.4f} "
+        f"(s = {s_init:.3f}); distinct codes in the batch "
+        f"{int(tr.encode_batch(batch)['code'].unique().numel())}")
+    if not abs(losses[0] - expect) <= 3 * s_init:
+        raise AssertionError(f"train bairhd: loss at step 0 {losses[0]}, not within 3 s = "
+                             f"{3 * s_init:.3f} of {expect:.4f}")
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"train bairhd: loss {losses[-1]} after the 10 timed steps not "
+                             f"below step 1's {losses[1]}")
+    # the AdamW update alone, once more from the last step's gradients
+    o0, o1 = _events()
+    o0.record()
+    state.opt.step()
+    o1.record()
+    o1.synchronize()
+    # fp32 parameter, gradient and both moments read, parameter and moments
+    # written: 28 bytes a parameter
+    adam_bound, _ = bound_ms(28 * n_params, 0, PEAK_FP32_PER_S)
+    log(f"train bairhd: the AdamW update alone {o0.elapsed_time(o1):.2f} ms (CUDA events); "
+        f"bytes bound {adam_bound:.2f} ms ({28 * n_params / 1e9:.2f} GB)")
+    box = [state]
+
+    def one_step():
+        box[0], _ = tr.step(box[0], tr.encode_batch(batch))
+
+    wall, busy, kernels, _ = device_profile(one_step)
+    if not kernels:
+        log(f"train bairhd profile: wall {wall:.4f} s; device time not measured")
+        return
+    log(f"train bairhd profile, one step: wall {wall:.4f} s, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}% of wall)")
+    for kname, t in kernels[:8]:
+        log(f"    {100 * t / busy:5.1f}%  {t * 1e3:9.3f} ms  {kname[:110]}")
+
+
+def phase_train_state(records, card):
+    """(c) The full-width state step: 96 images of 256x256 through the fp32
+    BAIR autoencoder, K1 twice a step (the encode, and the state quantizer
+    under autograd); the codebook's gradient equal to the plain search's."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.ops.vq import vq_indices, vq_loss
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+    from ccvs_tpu_torch.train.state_trainer import StateEstimatorTrainer
+
+    base = bairhd_config()
+    cfg = base.replace(name="train_state", data=dataclasses.replace(
+        base.data, dataset="synthetic", load_state=True, n_consecutive_img=1,
+        load_elastic_view=False))
+    batches = [to_device(x, "cuda") for x in _train_data(cfg, "train", 2, load_vid=False)]
+    ae = FrameAutoencoder(cfg.ae, dtype=torch.float32).init(seed=0)
+    tr = StateEstimatorTrainer(cfg, ae)
+    tr.model.init(seed=2)
+    state = tr.init_state(tr.model)
+    state, _ = tr.step(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    vq_indices.launches = 0
+    t0 = time.perf_counter()
+    state, m = tr.step(state, batches[1])
+    dt = _synced_since(t0)
+    if vq_indices.launches != 2:
+        raise AssertionError(f"train state: K1 launched {vq_indices.launches} times a step, "
+                             "expected 2")
+    records["vq_argmin"]["launches_by_rollout"]["train_state (1 step)"] = vq_indices.launches
+    # the state quantizer through K1: its indices the plain search's (a
+    # near-tie aside, as check_vq allows), and the codebook's gradient that
+    # of the gather alone, 2 beta (e_k - z_i) / N summed over the rows i
+    # that chose code k, computed in float64 on the CPU from K1's indices
+    q = state.params.quantizer
+    sf = batches[1]["state"][..., None]
+    z = sf.reshape(-1, 1)
+    ties, _ = check_vq(z, q.embedding.detach())
+    q.embedding.grad = None
+    idx = vq_indices(z, q.embedding).long()
+    vq_loss(sf, q.embedding.index_select(0, idx).reshape(sf.shape), q.beta).backward()
+    got = q.embedding.grad.double().cpu()
+    e, zc, ic = q.embedding.detach().double().cpu(), z.double().cpu(), idx.cpu()
+    want = torch.zeros_like(e).index_add_(0, ic, 2 * q.beta * (e[ic] - zc) / z.numel())
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not scale > 0 or not err <= 1e-5 * scale:
+        raise AssertionError(f"train state: codebook gradient through K1 differs from the "
+                             f"gather's by {err} (largest {scale}; tolerance 1e-5 of it)")
+    log(f"train state: {tuple(batches[1]['img'].shape)} images, {dt:.4f} s a step, K1 2 "
+        f"launches; the quantizer's indices the plain search's ({ties} near-ties); codebook "
+        f"gradient nonzero (largest {scale:.3g}), within {err:.3g} of the gather's alone; "
+        f"state_reg {float(m['state_reg']):.5f}, state_perp {float(m['state_perp']):.3f}; "
+        f"on {card}")
+
+
+def phase_train_runs():
+    """(d) ``TransformerTrainer.run`` and ``StateEstimatorTrainer.run`` on the
+    small configuration in a temporary directory: a latest checkpoint whose
+    resumed state (step, parameters, Adam moments) equals the trainer's, a
+    resumed run continuing the step count, the npz mirror in the JAX
+    package's layout."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.train.state_trainer import StateEstimatorTrainer
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+    from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = small_train_config().replace(save_path=tmp, npz_mirror=os.path.join(tmp, "m.npz"))
+        ae = FrameAutoencoder(cfg.ae, dtype=torch.float32).init(seed=0)
+        ran = TransformerTrainer(cfg, ae).run(n_iter=3)
+        fresh = TransformerTrainer(cfg, ae)
+        ck = CheckpointManager(os.path.join(tmp, "checkpoints", cfg.name))
+        loaded = ck.load("transformer", "latest", target=fresh.init_state())
+        moments = [(s["exp_avg"], s["exp_avg_sq"]) for s in ran.opt.opt.state.values()]
+        moments2 = [(s["exp_avg"], s["exp_avg_sq"]) for s in loaded.opt.opt.state.values()]
+        if not (loaded.step == ran.step == 3 and loaded.opt.count == 3
+                and same(loaded.params.parameters(), ran.params.parameters())
+                and all(same(a, b) for a, b in zip(moments, moments2))):
+            raise AssertionError("train run: the resumed state differs from the saved one")
+        resumed = TransformerTrainer(cfg, ae)
+        if resumed.run(n_iter=5, resume=True).step != 5:
+            raise AssertionError("train run: the resumed run did not reach step 5")
+        with np.load(cfg.npz_mirror) as z:
+            keys = {k[len("gpt/"):]: tuple(z[k].shape) for k in z.files}
+            dtypes = {str(z[k].dtype) for k in z.files}
+        if keys != MIRROR_KEYS or dtypes != {"float16"}:
+            raise AssertionError(f"train run: npz mirror keys {sorted(keys)} ({dtypes}) are not "
+                                 "the JAX package's tree")
+        st = StateEstimatorTrainer(cfg.replace(name="state_small"), ae)
+        first = st.run(n_iter=3)
+        again = StateEstimatorTrainer(cfg.replace(name="state_small"), ae).run(n_iter=4,
+                                                                               resume=True)
+        if first.step != 3 or again.step != 4:
+            raise AssertionError("train run: the state trainer did not run and resume")
+    log(f"train run: TransformerTrainer ran 3 steps, its latest checkpoint resumed equal (step, "
+        f"parameters, {len(moments)} Adam moment pairs) and continued to 5; the npz mirror "
+        f"holds the JAX tree's {len(MIRROR_KEYS)} keys in fp16; StateEstimatorTrainer ran 3 "
+        f"and resumed to 4")
+
+
+def phase_train(records, card):
+    # SyntheticDataset draws a training item's augmentation seed from
+    # Python's generator: seeded, every run sees the same batches
+    random.seed(0)
+    phase_train_reference()
+    phase_train_bairhd(records, card)
+    phase_train_state(records, card)
+    phase_train_runs()
+
+
 def main():
     import torch
 
@@ -1111,6 +1568,8 @@ def main():
 
     with phase("3 rollout"):
         models = phase_rollout(records, card, bairhd_config(), n_ctx=1)
+        log(f"decode step: {decode_ops_per_layer(models[1], models[3])} PyTorch operations a "
+            "layer on the card (bf16 parameters, compute and cache)")
     with phase("4 kinetics"):
         # 24 frames, 5 context frames (cond_len 320 / 64 tokens a frame): 960
         # decode steps fill the 1280-token window, then it slides 4 chunks of 64
@@ -1127,6 +1586,8 @@ def main():
         phase_drums(records, card)
     with phase("9 serving"):
         phase_serving(records, card)
+    with phase("10 train"):
+        phase_train(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,8 @@ from ccvs_tpu_torch.nn.quantized import int8_matmul
 from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
 from ccvs_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
 from ccvs_tpu_torch.ops.vq import vq_indices, vq_indices_plain
+from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
+from ccvs_tpu_torch.train.steps import make_transformer_step
 
 
 @pytest.fixture
@@ -31,7 +33,8 @@ def cuda():
 @pytest.mark.parametrize("n,k,d", [(2048, 1024, 512), (77, 1000, 40), (2048, 16384, 256),
                                    (640, 16384, 256), (128, 1024, 512), (64, 128, 1),
                                    (3072, 16384, 256), (5760, 1024, 512), (1440, 1024, 16),
-                                   (128, 1024, 16)])
+                                   (128, 1024, 16), (16384, 1024, 512), (6144, 1024, 512),
+                                   (192, 128, 1)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
     """K1 on the card: indices equal to the plain version's, near-ties aside.
     The shapes of the rollouts: BAIR's encode (2048) and context re-encode
@@ -39,7 +42,10 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
     Kinetics-600's (2048 and 640, and 3072 for 24 frames), the state
     quantizer's scalar codebook (depth 1, 128 codes), the drums encode of 45
     frames (5760) and its audio quantizer (depth 16, padded to 32 by the
-    pre-pass; 1440 rows, and 128), and a ragged one."""
+    pre-pass; 1440 rows, and 128), a ragged one, and training's: the
+    full-width BAIR step's encode of 16 clips of 16 frames (16384), the
+    state step's of 96 images (6144) and its quantizer of 96 x 2 states
+    (192 rows, depth 1)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -295,3 +301,62 @@ def test_int8_linear_kernel_matches_plain(cuda, rows, inner, out, dtype, with_bi
     assert int8_linear.launches - before == -(-rows // 8)
     assert got.is_cuda and got.dtype == torch.float32 and got.shape == (rows, out)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_vq_gradient_contract_on_card(cuda):
+    """Through K1 the quantizer gives ``z`` the straight-through gradient
+    and the codebook its gradient through the gather, equal to the CPU's
+    (the plain search) on the same inputs."""
+    g = torch.Generator().manual_seed(4)
+    z = torch.randn(192, 1, generator=g).abs()
+    w = torch.randn(192, 1, generator=g)
+    cb = torch.rand(128, 1, generator=g)
+    grads = {}
+    for dev in ("cpu", cuda):
+        q = VectorQuantizer(128, 1).to(dev)
+        with torch.no_grad():
+            q.embedding.copy_(cb)
+        zz = z.clone().to(dev).requires_grad_(True)
+        before = vq_indices.launches
+        z_q, loss, (_, idx) = q(zz)
+        ((w.to(dev) * z_q).sum() + loss).backward()
+        assert vq_indices.launches == before + (dev != "cpu")
+        grads[str(dev)] = idx.cpu(), zz.grad.cpu(), q.embedding.grad.cpu()
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-9)
+    assert float(grads["cuda"][2].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_transformer_step_on_card_matches_cpu(cuda):
+    """One fp32 AdamW step (the second, at lr > 0) of a small GPT on the
+    card against the same step on the CPU: the loss and gradient norm within
+    rtol 1e-5, the parameters within 2 lr of each other (an Adam update is
+    lr * m / sqrt(v), whose sign rounding decides where the gradient is near
+    zero) and within rtol 1e-3 of the CPU's update elsewhere."""
+    cfg = TransformerConfig(z_num=64, z_len=64, num_blocks=4, n_layer=2, n_head=2, n_embd=128,
+                            z_shape=(4, 4), lr=1e-3)
+    code = torch.randint(0, 64, (4, 64), generator=torch.Generator().manual_seed(5))
+    out = {}
+    init_cpu = TokenTransformer(cfg, dtype=torch.float32, device="cpu").init(seed=0)
+    for dev in ("cpu", cuda):
+        # one set of weights for both (the two devices' generators differ)
+        tr = TokenTransformer(cfg, dtype=torch.float32, device=dev)
+        tr.load_state_dict(init_cpu.state_dict())
+        start = {n: p.detach().clone() for n, p in tr.named_parameters()}
+        init, step = make_transformer_step(tr, cfg, 10)
+        state = init()
+        for _ in range(2):
+            state, m = step(state, {"code": code.to(dev)})
+        grad = {n: p.grad.cpu() for n, p in tr.named_parameters()}
+        out[str(dev)] = m, {n: p.detach().cpu() for n, p in tr.named_parameters()}, start, grad
+    (mc, pc, start, grad), (mg, pg, _, _) = out["cpu"], out["cuda"]
+    for k in ("nll", "gnorm"):
+        assert torch.allclose(mg[k].cpu(), mc[k], rtol=1e-5), k
+    scale = max(float(g.abs().max()) for g in grad.values())
+    for n, p in pc.items():
+        near_zero = grad[n].abs() <= 1e-3 * scale
+        bound = torch.where(near_zero, torch.full_like(p, 2 * cfg.lr),
+                            1e-3 * (p - start[n].cpu()).abs() + 4 * torch.finfo(p.dtype).eps * p.abs())
+        assert bool(((pg[n] - p).abs() <= bound).all()), n
