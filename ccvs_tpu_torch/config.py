@@ -1,14 +1,16 @@
 """Configuration of the port: its own copy of the parts of
-``ccvs_tpu/config.py`` that the serving paths read (the data, autoencoder,
-transformer, state and STFT groups, and every preset: BAIR-256 with its
-state-conditioned, point-to-point and unconditional variants, Kinetics-600,
-UCF-101 and the audio-conditioned drums, ``config.py:470-696`` there).
+``ccvs_tpu/config.py`` that the serving paths and the trainers read (the
+data, autoencoder, transformer, state and STFT groups, and every preset:
+BAIR-256 with its state-conditioned, point-to-point and unconditional
+variants, Kinetics-600, UCF-101 and the audio-conditioned drums,
+``config.py:470-696`` there).
 
-Fields keep the JAX package's names and defaults. Only the fields the serving
-paths and the latent-stage trainers read are here, and the data group whole:
-the autoencoder options no preset sets (``no_corr``, ``skip_rgb``,
-``keep_first``, ...), layouts, ``emb_mode`` other than ``"temporal"`` and the
-autoencoder's training options come with the slices that need them.
+Fields keep the JAX package's names and defaults. Only the fields the port
+reads are here, and the data group whole: the autoencoder options no preset
+sets (``no_corr``, ``skip_rgb``, ``keep_first``, deformable convolutions,
+...), and ``emb_mode`` other than ``"temporal"``, come with the slices that
+need them; layouts and adaptive augmentation are named so that asking for
+them raises.
 """
 
 import dataclasses
@@ -120,6 +122,59 @@ class AutoencoderConfig:
     inter_p: float = 0.75
     skip_context: Tuple[int, ...] = tuple(range(1, 16))
     skip_memory: int = 15
+
+    # training (train/ae_losses.py, train/states.py, train/steps.py); the
+    # discriminators' widths are ``ndcf * ndcf_mult``
+    ndcf: int = 64
+    ndcf_mult: Tuple[int, ...] = (1, 1, 2, 2, 4, 4)
+    # share of an image batch whose context fusion is skipped
+    inter_drop_p: float = 0.0
+    p2p_context: bool = False
+    lr: float = 0.002
+    # after this many optimizer updates (an int or a tuple of them) the lr
+    # is multiplied by ``lr_decay_mult``; 0 keeps it constant
+    lr_decay_at: object = 0
+    lr_decay_mult: float = 1.0
+    beta1: float = 0.0
+    beta2: float = 0.99
+    gan_loss: str = "logistic"
+    use_di: bool = True
+    use_dv: bool = False
+    use_df: bool = False
+    use_vgg_img: bool = True
+    use_vgg_vid: bool = False
+    use_direct_recovery_img: bool = True
+    use_direct_recovery_vid: bool = False
+    use_inter_rec_loss_img: bool = False
+    use_backwarp_consistency_img: bool = False
+    use_elastic_flow_recovery: bool = False
+    use_unc_gen: bool = False
+    no_q_img: bool = False
+    lambda_quant: float = 1.0
+    lambda_vgg: float = 10.0
+    lambda_gan: float = 1.0
+    lambda_r1: float = 10.0
+    g_reg_every: Optional[int] = None
+    d_reg_every: Optional[int] = 16
+    vid_step_every: int = 1
+    use_ema: bool = True
+    ema_decay: float = 0.999
+    # adaptive discriminator augmentation and layouts (not ported: raise)
+    use_aug: bool = False
+    aug_p: float = 0.0
+    use_layout: bool = False
+    stddev_group: int = 4
+    n_consecutive_dis: int = 1
+    downsample_dis_num: int = 0
+    downsample_vdis_num: int = 0
+    slide_inter: bool = False
+    vid_len: int = 16
+    n_consecutive_img: int = 1
+    load_elastic_view: bool = False
+    elastic_corruption: bool = False
+    # recompute the encoder, decoder, VGG and discriminators in the backward
+    # pass instead of keeping their activations
+    remat: bool = False
 
     @property
     def num_resolutions(self) -> int:
@@ -248,6 +303,10 @@ class StftConfig:
     stft_shape: Tuple[int, int] = (8, 2)
     stft_hsize: int = 128
     stft_num: int = 1024
+    lr: float = 0.001
+    beta1: float = 0.5
+    beta2: float = 0.9
+    weight_decay: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -258,17 +317,21 @@ class Config:
     gpt: TransformerConfig = field(default_factory=TransformerConfig)
     state: StateConfig = field(default_factory=StateConfig)
     stft: StftConfig = field(default_factory=StftConfig)
+    # the autoencoder and STFT trainers draw their video batches from this
+    # second dataset when it is set (reference ``--use_extra_dataset``)
+    extra_data: Optional[DataConfig] = None
 
     # the trainers' bookkeeping
     save_path: str = "./runs"
     seed: int = 0
     n_iter: int = 200_000
     save_latest_freq: int = 1000
+    save_freq: int = -1
     log_freq: Optional[int] = 2000
     n_iter_eval: Optional[int] = None
-    # when set, every ``latest`` checkpoint also merge-writes the GPT's
-    # parameters into this fp16 npz, in the JAX package's flat layout
-    # (utils/checkpoint.py)
+    # when set, every ``latest`` checkpoint also merge-writes the trained
+    # parameters (the GPT's, or the autoencoder's raw generator) into this
+    # fp16 npz, in the JAX package's flat layout (utils/checkpoint.py)
     npz_mirror: str = ""
 
     def replace(self, **kw) -> "Config":
@@ -276,6 +339,30 @@ class Config:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        """The config that :meth:`to_json` wrote (JSON lists back to tuples;
+        fields the port does not have are left out)."""
+        raw = json.loads(text)
+
+        def build(dc_type, d):
+            names = {f.name for f in dataclasses.fields(dc_type)}
+            return dc_type(**{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in d.items() if k in names})
+
+        groups = {"data": DataConfig, "ae": AutoencoderConfig, "gpt": TransformerConfig,
+                  "state": StateConfig, "stft": StftConfig, "extra_data": DataConfig}
+        kw = {name: build(typ, raw[name]) for name, typ in groups.items()
+              if raw.get(name) is not None}
+        kw.update({f.name: raw[f.name] for f in dataclasses.fields(cls)
+                   if f.name not in groups and f.name in raw})
+        return cls(**kw)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_json(f.read())
 
 
 def _bair_ae() -> AutoencoderConfig:
@@ -290,6 +377,17 @@ def _bair_ae() -> AutoencoderConfig:
         inter_p=0.75,
         skip_context=tuple(range(1, 16)),
         skip_memory=15,
+        ndcf=64,
+        ndcf_mult=(1, 1, 2, 2, 4, 4),
+        use_dv=True,
+        use_vgg_vid=True,
+        use_direct_recovery_vid=True,
+        slide_inter=True,
+        use_elastic_flow_recovery=True,
+        elastic_corruption=True,
+        load_elastic_view=True,
+        n_consecutive_img=2,
+        vid_len=4,
     )
 
 

@@ -10,24 +10,27 @@ import torch
 from torch import nn
 
 from ccvs_tpu_torch.device import resolve_device
-from ccvs_tpu_torch.nn.decoder import GroupedUpsample, SkipDecoder
+from ccvs_tpu_torch.nn.decoder import SkipDecoder
 from ccvs_tpu_torch.nn.encoder import SkipEncoder
-from ccvs_tpu_torch.nn.layers import EqualConv2d
+from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
 
 
 class FrameAutoencoder(nn.Module):
-    """Encoder, quantizer and decoder, whose parameters are held and computed
-    in ``dtype``, except the codebook: it stays fp32, as vector quantization
-    (kernel K1) is fp32, and the decoder casts the latents it looks up."""
+    """Encoder, quantizer and decoder, which compute in ``dtype`` and hold
+    their parameters in ``param_dtype`` (default ``dtype``: serving's bf16
+    parameters; the trainer holds fp32 ones under bf16 compute, as the JAX
+    package does), except the codebook: it stays fp32, as vector
+    quantization (kernel K1) is fp32, and the decoder casts the latents it
+    looks up."""
 
-    def __init__(self, cfg, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None, param_dtype=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         with resolve_device(device):
-            self.encoder = SkipEncoder(cfg, dtype=dtype)
+            self.encoder = SkipEncoder(cfg, dtype=dtype, param_dtype=param_dtype)
             self.quantizer = VectorQuantizer(cfg.z_num, cfg.z_size)
-            self.decoder = SkipDecoder(cfg, dtype=dtype)
+            self.decoder = SkipDecoder(cfg, dtype=dtype, param_dtype=param_dtype)
 
     @property
     def device(self):
@@ -37,12 +40,8 @@ class FrameAutoencoder(nn.Module):
         """Seeded random parameters (flax's initializers: conv weights N(0, 1),
         grouped upsamplers N(0, 0.02), codebook U(-1/n_e, 1/n_e)). Returns self."""
         g = torch.Generator(device=self.device).manual_seed(seed)
+        init_equalized(self, g)
         with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, EqualConv2d):
-                    m.weight.normal_(0.0, 1.0, generator=g)
-                elif isinstance(m, GroupedUpsample):
-                    m.weight.normal_(0.0, 0.02, generator=g)
             n_e = self.cfg.z_num
             self.quantizer.embedding.uniform_(-1.0 / n_e, 1.0 / n_e, generator=g)
         return self
@@ -69,6 +68,15 @@ class FrameAutoencoder(nn.Module):
         z_q, idx = self.quantizer.quantize(z.float())
         lead = idx.shape[:idx.ndim - 2]
         return {"code": idx.reshape(*lead, -1), "z": z_q, "inter": inters}
+
+    @torch.no_grad()
+    def reconstruct(self, frames):
+        """Per-frame reconstruction: encode, quantize, decode each frame
+        against its own context features (the reference's ``rec/`` output,
+        the trainer's held-out eval). ``(B[, T], H, W, 3)`` in the compute
+        dtype."""
+        enc = self.encode(frames)
+        return self.decoder(enc["z"].to(self.dtype), SkipDecoder.stack_contexts([enc["inter"]]))
 
     def embed_code(self, code):
         """Token indices ``(B[, T], h*w)`` -> latents ``(B[, T], h, w, z_size)``."""

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from ccvs_tpu_torch.device import resolve_device
-from ccvs_tpu_torch.nn.layers import EqualConv2d, EqualLinear
+from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
 from ccvs_tpu_torch.nn.state import StateEstimator
 
@@ -32,12 +32,8 @@ class StateModel(nn.Module):
         """Seeded random parameters (flax's initializers: conv and linear
         weights N(0, 1), biases 0, the scalar codebook U(0, 1)). Returns self."""
         g = torch.Generator(device=self.device).manual_seed(seed)
+        init_equalized(self, g)
         with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (EqualConv2d, EqualLinear)):
-                    m.weight.normal_(0.0, 1.0, generator=g)
-                    if m.bias is not None:
-                        m.bias.zero_()
             self.quantizer.embedding.uniform_(0.0, 1.0, generator=g)
         return self
 

@@ -5,13 +5,16 @@ The ``k`` contexts are folded into the batch axis (b-major, k-minor); a
 ``ctx_mask (B, k)`` marks the valid context slots of a fixed-size FIFO. The
 decoder features ``x`` are shared across the contexts, so every conv that
 reads them computes their term once per batch element (exact by conv
-linearity; the JAX package's ``shared_x_split``, its default).
+linearity; the JAX package's ``shared_x_split``, its default). Parameters
+are held in ``param_dtype`` and cast to the compute ``dtype`` at use
+(``nn/layers.py``).
 """
 
 import torch
 from torch import nn
 
-from ccvs_tpu_torch.nn.layers import ConvLayerAE, ResBlockAE, flatten_vid, unflatten_vid
+from ccvs_tpu_torch.nn.layers import (ConvLayerAE, ResBlockAE, as_dtype, flatten_vid,
+                                      unflatten_vid)
 from ccvs_tpu_torch.ops.convops import conv_transpose2d
 from ccvs_tpu_torch.ops.correlation import local_correlation
 from ccvs_tpu_torch.ops.fused_act import leaky_relu
@@ -21,35 +24,40 @@ from ccvs_tpu_torch.ops.warp import backwarp, backwarp_sampled
 class GroupedUpsample(nn.Module):
     """Grouped 2x transposed conv (k=4, s=2, p=1, groups=C; weights drawn N(0, 0.02))."""
 
-    def __init__(self, channels, out_channels=None, dtype=torch.float32):
+    init_std = 0.02
+
+    def __init__(self, channels, out_channels=None, dtype=torch.float32, param_dtype=None):
         super().__init__()
         out_ch = out_channels or channels
-        self.weight = nn.Parameter(torch.empty(channels, out_ch // channels, 4, 4, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(channels, out_ch // channels, 4, 4,
+                                               dtype=param_dtype or dtype))
         self.channels, self.dtype = channels, dtype
 
     def forward(self, x):
-        return conv_transpose2d(x.to(self.dtype), self.weight, None, stride=2,
-                                padding=1, groups=self.channels)
+        return conv_transpose2d(x.to(self.dtype), as_dtype(self.weight, self.dtype), None,
+                                stride=2, padding=1, groups=self.channels)
 
 
 class Matching(nn.Module):
     """Cost-volume flow estimation."""
 
-    def __init__(self, flow_mult, kernel, feat_size, corr_stride, first, dtype=torch.float32):
+    def __init__(self, flow_mult, kernel, feat_size, corr_stride, first, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.flow_mult, self.corr_stride = flow_mult, corr_stride
         if not first:
-            self.upsample_flow = GroupedUpsample(2, dtype=dtype)
-            self.upsample_occ = GroupedUpsample(1, dtype=dtype)
-        self.proj = (ConvLayerAE(feat_size, max(16, feat_size // 4), 1, dtype=dtype)
+            self.upsample_flow = GroupedUpsample(2, **kw)
+            self.upsample_occ = GroupedUpsample(1, **kw)
+        self.proj = (ConvLayerAE(feat_size, max(16, feat_size // 4), 1, **kw)
                      if feat_size > 16 else None)
         if corr_stride != 1:
-            self.upsample_corr = GroupedUpsample(49, dtype=dtype)
-        self.convs0 = ConvLayerAE(49, 128, 3, dtype=dtype)
-        self.convs1 = ConvLayerAE(128, 64, 3, dtype=dtype)
-        self.convs2 = ConvLayerAE(64, 32, 3, dtype=dtype)
-        self.flow_head = ConvLayerAE(32, 2, kernel, activate=False, dtype=dtype)
-        self.occ_head = ConvLayerAE(32, 1, kernel, activate=False, dtype=dtype)
+            self.upsample_corr = GroupedUpsample(49, **kw)
+        self.convs0 = ConvLayerAE(49, 128, 3, **kw)
+        self.convs1 = ConvLayerAE(128, 64, 3, **kw)
+        self.convs2 = ConvLayerAE(64, 32, 3, **kw)
+        self.flow_head = ConvLayerAE(32, 2, kernel, activate=False, **kw)
+        self.occ_head = ConvLayerAE(32, 1, kernel, activate=False, **kw)
 
     def forward(self, x, k, inter, flow, occ):
         """x ``(B, h, w, s)`` shared decoder features; inter, flow, occ
@@ -82,14 +90,15 @@ class Matching(nn.Module):
 class Subpixel(nn.Module):
     """Subpixel flow refinement."""
 
-    def __init__(self, flow_mult, kernel, feat_size, dtype=torch.float32):
+    def __init__(self, flow_mult, kernel, feat_size, dtype=torch.float32, param_dtype=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.flow_mult = flow_mult
-        self.convs0 = ConvLayerAE(2 * feat_size + 3, 128, 3, dtype=dtype)
-        self.convs1 = ConvLayerAE(128, 64, 3, dtype=dtype)
-        self.convs2 = ConvLayerAE(64, 32, 3, dtype=dtype)
-        self.flow_head = ConvLayerAE(32, 2, kernel, activate=False, dtype=dtype)
-        self.occ_head = ConvLayerAE(32, 1, kernel, activate=False, dtype=dtype)
+        self.convs0 = ConvLayerAE(2 * feat_size + 3, 128, 3, **kw)
+        self.convs1 = ConvLayerAE(128, 64, 3, **kw)
+        self.convs2 = ConvLayerAE(64, 32, 3, **kw)
+        self.flow_head = ConvLayerAE(32, 2, kernel, activate=False, **kw)
+        self.occ_head = ConvLayerAE(32, 1, kernel, activate=False, **kw)
 
     def forward(self, x, k, inter, flow, occ):
         warped = backwarp(inter, flow * self.flow_mult)
@@ -103,11 +112,12 @@ class InterBlock(nn.Module):
     then a confidence-weighted average of the warped contexts."""
 
     def __init__(self, flow_mult, kernel, feat_size, corr_stride, first=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.flow_mult = flow_mult
-        self.matching = Matching(flow_mult, kernel, feat_size, corr_stride, first, dtype)
-        self.subpixel = Subpixel(flow_mult, kernel, feat_size, dtype)
+        self.matching = Matching(flow_mult, kernel, feat_size, corr_stride, first, dtype,
+                                 param_dtype)
+        self.subpixel = Subpixel(flow_mult, kernel, feat_size, dtype, param_dtype)
 
     def forward(self, x, inters, flows=None, occs=None, ctx_mask=None, eps=1e-6):
         """x ``(B, h, w, s)``; inters ``(B, k, h, w, s)``; flows/occs
@@ -143,46 +153,84 @@ def interblock_schedule(num_resolutions):
 class SkipDecoder(nn.Module):
     """SkipGAN decoder (RGB) with a context-fusion InterBlock per resolution."""
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         nres = cfg.num_resolutions
         chans, sizes = cfg.dec_channels, cfg.inter_sizes_dec
         sched = interblock_schedule(nres)
-        self.add_module("block0", ConvLayerAE(cfg.z_size, chans[0], 1, dtype=dtype))
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.add_module("block0", ConvLayerAE(cfg.z_size, chans[0], 1, **kw))
         for i in range(nres):
             if i > 0:
                 self.add_module(f"block{i}", ResBlockAE(chans[i - 1], chans[i], upsample=True,
-                                                        dtype=dtype))
+                                                        **kw))
             self.add_module(f"inter_block{i}", InterBlock(
                 sched[i]["flow_mult"], sched[i]["kernel"], sizes[i], sched[i]["corr_stride"],
-                first=(i == 0), dtype=dtype))
-        self.add_module(f"block{nres}", ConvLayerAE(chans[-1], 3, 1, activate=False,
-                                                    dtype=dtype))
+                first=(i == 0), **kw))
+        self.add_module(f"block{nres}", ConvLayerAE(chans[-1], 3, 1, activate=False, **kw))
 
-    def forward(self, z, inters, ctx_mask=None):
+    @staticmethod
+    def stack_contexts(inter_tgts):
+        """A list of k contexts, each a list per resolution of ``(B[, T], h_r,
+        w_r, c_r)`` features (the JAX package's ``inter_tgts``), as
+        :meth:`forward` takes them: per resolution ``(B*T, k, h_r, w_r,
+        c_r)``."""
+        return [torch.stack([flatten_vid(ctx[r])[0] for ctx in inter_tgts], dim=1)
+                for r in range(len(inter_tgts[0]))]
+
+    @staticmethod
+    def last_flow_mult(cfg):
+        return float(2 ** (cfg.num_resolutions - 1))
+
+    def forward(self, z, inters=None, ctx_mask=None, return_all=False, inter_pre_warping=True,
+                has_ctx=True, keep_mask=None):
         """Decode latents, warping in context features.
 
         Args:
           z: ``(B[, T], h, w, z_size)``.
           inters: per resolution in encoder order (finest first) the contexts
-            ``(B*T, k, h_r, w_r, c_r)``.
+            ``(B*T, k, h_r, w_r, c_r)`` (:meth:`stack_contexts`); None, or
+            ``has_ctx=False``, decodes without context fusion.
           ctx_mask: optional ``(B*T, k)`` slot validity.
+          return_all: also return the flows and occlusion logits of every
+            resolution (``(B*T*k, h_r, w_r, 2 | 1)``, coarsest first) and the
+            decoder's context-sized features (``(B[, T], h_r, w_r, c_r)``,
+            coarsest first; before the fusion with ``inter_pre_warping``,
+            after it without).
+          keep_mask: optional ``(B*T,)`` 0/1: items with 0 skip the fusion.
 
         Returns:
-          ``(B[, T], H, W, 3)``.
+          ``(B[, T], H, W, 3)``, or with ``return_all`` ``(rgb, None,
+          flows, occs, inter_dec)`` (the JAX package's tuple; the layout
+          decode is not ported).
         """
         cfg = self.cfg
         z, t = flatten_vid(z)
         nres = cfg.num_resolutions
         sizes = cfg.inter_sizes_dec
+        use_inter = inters is not None and has_ctx
         out = self.block0(z)
         flows = occs = None
+        inter_flows, inter_occs, inter_dec = [], [], []
         for i in range(nres):
             if i > 0:
                 out = getattr(self, f"block{i}")(out)
+            if not use_inter:
+                continue
             head, tail = out[..., :sizes[i]], out[..., sizes[i]:]
+            if inter_pre_warping:
+                inter_dec.append(head)
             fused, flows, occs = getattr(self, f"inter_block{i}")(
                 head, inters[nres - 1 - i], flows, occs, ctx_mask)
+            if keep_mask is not None:
+                fused = torch.where(keep_mask[:, None, None, None].bool(), fused, head)
             out = torch.cat([fused, tail], dim=-1)
-        return unflatten_vid(getattr(self, f"block{nres}")(out), t)
+            if not inter_pre_warping:
+                inter_dec.append(fused)
+            inter_flows.append(flows)
+            inter_occs.append(occs)
+        rgb = unflatten_vid(getattr(self, f"block{nres}")(out), t)
+        if return_all:
+            return rgb, None, inter_flows, inter_occs, [unflatten_vid(f, t) for f in inter_dec]
+        return rgb

@@ -11,16 +11,17 @@ class SkipEncoder(nn.Module):
     latent size. The first ``inter_p`` of the channels at every resolution are
     the context ("inter") features of the flow-warping decoder."""
 
-    def __init__(self, cfg, dtype=torch.float32):
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         chans = cfg.enc_channels
-        self.add_module("block0", ConvLayerAE(3, chans[0], 1, dtype=dtype))
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.add_module("block0", ConvLayerAE(3, chans[0], 1, **kw))
         for i in range(1, cfg.num_resolutions):
             self.add_module(f"block{i}", ResBlockAE(chans[i - 1], chans[i], downsample=True,
-                                                    dtype=dtype))
+                                                    **kw))
         self.add_module(f"block{cfg.num_resolutions}",
-                        ConvLayerAE(chans[-1], cfg.z_size, 1, dtype=dtype))
+                        ConvLayerAE(chans[-1], cfg.z_size, 1, **kw))
 
     def forward(self, x):
         """x ``(B[, T], H, W, 3)`` -> ``(z, inters)``: z ``(B[, T], h, w,

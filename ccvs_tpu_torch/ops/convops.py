@@ -2,9 +2,10 @@
 of ``ccvs_tpu/ops/convops.py``).
 
 The JAX package leaves these to XLA; here they are ``F.conv2d`` /
-``F.conv_transpose2d``. An NHWC tensor is permuted to an NCHW view without a
+``F.conv_transpose2d`` / ``F.conv3d``. An NHWC tensor is permuted to an NCHW view without a
 copy (its strides are PyTorch's ``channels_last`` format, which cuDNN takes as
-is), and the result is permuted back.
+is), and the result is permuted back; an NTHWC video likewise to NCTHW
+(``channels_last_3d``).
 """
 
 import torch.nn.functional as F
@@ -28,3 +29,9 @@ def conv_transpose2d(x, w, b=None, stride=1, padding=0, groups=1):
     """``F.conv_transpose2d`` semantics; x ``(B, H, W, I)``, w ``(I, O/groups, kh, kw)``."""
     return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride, padding=padding,
                                     groups=groups))
+
+
+def conv3d(x, w, b=None, stride=1, padding=0, groups=1):
+    """``F.conv3d`` semantics; x ``(B, T, H, W, I)``, w ``(O, I/groups, kt, kh, kw)``."""
+    return F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride=stride, padding=padding,
+                    groups=groups).permute(0, 2, 3, 4, 1)

@@ -13,11 +13,16 @@ two within 1e-5.
 import torch.nn.functional as F
 
 
-def resize_frames(x, size):
-    """Frames ``(..., H, W, C)`` -> ``(..., size, size, C)``, computed in
+def resize_bilinear(x, h_out, w_out):
+    """Frames ``(..., H, W, C)`` -> ``(..., h_out, w_out, C)``, computed in
     fp32 and returned in ``x``'s dtype."""
     lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
     flat = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).float()
-    out = F.interpolate(flat, size=(size, size), mode="bilinear", align_corners=False,
+    out = F.interpolate(flat, size=(h_out, w_out), mode="bilinear", align_corners=False,
                         antialias=True)
-    return out.permute(0, 2, 3, 1).reshape(*lead, size, size, c).to(x.dtype)
+    return out.permute(0, 2, 3, 1).reshape(*lead, h_out, w_out, c).to(x.dtype)
+
+
+def resize_frames(x, size):
+    """Frames ``(..., H, W, C)`` -> ``(..., size, size, C)``."""
+    return resize_bilinear(x, size, size)

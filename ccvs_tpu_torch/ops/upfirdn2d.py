@@ -3,7 +3,10 @@
 
 Zero-stuffing, (possibly negative) padding and a depthwise ``F.conv2d`` with
 the flipped kernel; the JAX package expresses the same pipeline as one XLA
-convolution.
+convolution. The depthwise convolution is differentiated by hand
+(:class:`_DepthwiseConv`), so that R1's double backward stays a few
+convolutions: PyTorch's own double backward of a grouped convolution runs
+one convolution a channel.
 """
 
 import numpy as np
@@ -19,6 +22,43 @@ def make_resample_kernel(k, gain=1.0, device=None):
         k = np.outer(k, k)
     k = k / k.sum()
     return torch.as_tensor(k * gain, device=device)
+
+
+class _DepthwiseConv(torch.autograd.Function):
+    """``F.conv2d(t, k, stride, groups=C)`` with a kernel that takes no
+    gradient; its input gradient is :class:`_DepthwiseConvT`, whose own
+    gradient is this convolution again, so any order of derivative is a
+    first-order convolution. The operations are those PyTorch's autograd
+    runs for the first derivative."""
+
+    @staticmethod
+    def forward(ctx, t, k, stride):
+        ctx.save_for_backward(t, k)
+        ctx.stride = stride
+        return F.conv2d(t, k, stride=stride, groups=k.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        t, k = ctx.saved_tensors
+        return _DepthwiseConvT.apply(g, t, k, ctx.stride), None, None
+
+
+class _DepthwiseConvT(torch.autograd.Function):
+    """The input gradient of :class:`_DepthwiseConv` for output gradient
+    ``g`` (``t`` gives the input's shape and layout)."""
+
+    @staticmethod
+    def forward(ctx, g, t, k, stride):
+        ctx.save_for_backward(k)
+        ctx.stride = stride
+        return torch.ops.aten.convolution_backward(
+            g, t, k, None, stride, [0, 0], [1, 1], False, [0, 0], k.shape[0],
+            [True, False, False])[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        k, = ctx.saved_tensors
+        return _DepthwiseConv.apply(gg, k, ctx.stride), None, None, None
 
 
 def _pair(v):
@@ -45,7 +85,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     # true convolution: flip the kernel for F.conv2d's cross-correlation
     k = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
     k = k[None, None].expand(c, 1, *k.shape)
-    out = F.conv2d(t, k, stride=(down_y, down_x), groups=c)
+    out = _DepthwiseConv.apply(t, k, (down_y, down_x))
     return out.permute(0, 2, 3, 1)
 
 

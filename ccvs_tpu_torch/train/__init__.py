@@ -1,3 +1,3 @@
-"""Trainers of the port (counterpart of ``ccvs_tpu/train``): the latent
-stage, the transformer trainer and the state-estimator trainer, on a frozen
-autoencoder."""
+"""Trainers of the port (counterpart of ``ccvs_tpu/train``): the frame
+autoencoder with its discriminators, the latent transformer and the state
+estimator on a frozen autoencoder, and the STFT audio autoencoder."""

@@ -1,10 +1,15 @@
-"""Train states and optimizers of the latent-stage trainers (counterpart of
-``ccvs_tpu/train/states.py``).
+"""Train states and optimizers (counterpart of ``ccvs_tpu/train/states.py``).
 
-The transformer trains with AdamW under optax's warmup (and cosine)
-schedule, with weight decay on the dense kernels only: every ``nn.Linear``
-weight of the GPT, the head included (minGPT's split,
-``transformer_model.py:85-139``). The state estimator trains with Adam.
+The frame autoencoder and its discriminators train with Adam, each with
+the lazy-regularization ratio ``r = reg_every / (reg_every + 1)`` folded in
+as ``lr * r`` and ``beta ** r`` (StyleGAN2's, ``quantized_video_model.py:
+226-248``), optionally with a step decay after ``lr_decay_at`` updates
+(optax's ``piecewise_constant_schedule``); the generator's EMA is updated
+after each of its steps. The transformer trains with AdamW under optax's
+warmup (and cosine) schedule, with weight decay on the dense kernels only:
+every ``nn.Linear`` weight of the GPT, the head included (minGPT's split,
+``transformer_model.py:85-139``). The state estimator and the STFT
+autoencoder train with Adam.
 
 ``torch.optim.AdamW`` computes the same update as optax's ``adamw`` (and, with
 weight decay 0, as ``adam``):
@@ -17,6 +22,7 @@ updates made so far: with ``lr_warmup_iter=1`` the first update has lr 0,
 the moments advance and the weights do not move.
 """
 
+import copy
 import math
 from dataclasses import dataclass
 
@@ -69,28 +75,33 @@ class Optimizer:
         groups = [(list(ps), sched, wd) for ps, sched, wd in groups]
         groups = [g for g in groups if g[0]]
         self.schedules = [sched for _, sched, _ in groups]
-        self.opt = torch.optim.AdamW([{"params": ps, "weight_decay": wd} for ps, _, wd in groups],
-                                     lr=0.0, betas=(b1, b2), eps=eps)
+        # no parameters (an autoencoder trained without discriminators): no
+        # optimizer, the count still advances
+        self.opt = torch.optim.AdamW(
+            [{"params": ps, "weight_decay": wd} for ps, _, wd in groups], lr=0.0,
+            betas=(b1, b2), eps=eps) if groups else None
         self.count = 0
 
     def step(self):
         """One update from the parameters' ``.grad``; a parameter without a
         gradient gets a zero one, as ``jax.grad`` gives it (its moments still
         decay)."""
-        for group, sched in zip(self.opt.param_groups, self.schedules):
-            group["lr"] = float(sched(self.count))
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        self.opt.step()
+        if self.opt is not None:
+            for group, sched in zip(self.opt.param_groups, self.schedules):
+                group["lr"] = float(sched(self.count))
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            self.opt.step()
         self.count += 1
 
     def state_dict(self):
-        return {"count": self.count, "opt": self.opt.state_dict()}
+        return {"count": self.count, "opt": self.opt.state_dict() if self.opt else {}}
 
     def load_state_dict(self, state):
         self.count = int(state["count"])
-        self.opt.load_state_dict(state["opt"])
+        if self.opt is not None:
+            self.opt.load_state_dict(state["opt"])
 
 
 @dataclass
@@ -152,3 +163,82 @@ def make_transformer_optimizer(cfg, n_iter, gpt):
 def make_adam(params, lr, b1, b2, weight_decay=0.0):
     """optax's ``adam`` (or ``adamw`` with ``weight_decay``) at a constant lr."""
     return Optimizer([(params, lambda count: lr, weight_decay)], b1, b2)
+
+
+def piecewise_constant_schedule(init_value, boundaries_and_scales):
+    """optax's ``piecewise_constant_schedule``: ``init_value`` times every
+    scale whose boundary the count has reached."""
+    def schedule(count):
+        v = init_value
+        for boundary, scale in sorted(boundaries_and_scales.items()):
+            if count >= boundary:
+                v *= scale
+        return v
+
+    return schedule
+
+
+def make_ae_optimizers(cfg, gen_params, disc_params):
+    """``(opt_g, opt_d)``: Adam over the generator's and the discriminators'
+    parameters with the lazy-regularization lr and beta ratios
+    (``quantized_video_model.py:239-243``) and ``lr_decay_at`` (an int or a
+    tuple of update counts, each multiplying the lr by ``lr_decay_mult``)."""
+    g_ratio = cfg.g_reg_every / (cfg.g_reg_every + 1) if cfg.g_reg_every else 1.0
+    d_ratio = cfg.d_reg_every / (cfg.d_reg_every + 1) if cfg.d_reg_every else 1.0
+    pts = (cfg.lr_decay_at if isinstance(cfg.lr_decay_at, (tuple, list))
+           else (cfg.lr_decay_at,) if cfg.lr_decay_at else ())
+
+    def adam(params, ratio):
+        sched = piecewise_constant_schedule(cfg.lr * ratio,
+                                            {int(p): cfg.lr_decay_mult for p in pts})
+        return Optimizer([(params, sched, 0.0)], cfg.beta1**ratio, cfg.beta2**ratio)
+
+    return adam(gen_params, g_ratio), adam(disc_params, d_ratio)
+
+
+@torch.no_grad()
+def ema_update(ema, module, decay=0.999):
+    """``ema <- ema * decay + params * (1 - decay)`` over the parameters of
+    two modules of one structure (``QVidModel.accumulate``,
+    ``quantized_video_model.py:951-964``)."""
+    e = list(ema.parameters())
+    torch._foreach_mul_(e, decay)
+    torch._foreach_add_(e, [p.detach() for p in module.parameters()], alpha=1.0 - decay)
+
+
+@dataclass
+class AETrainState:
+    """The autoencoder's train state: the iteration count, the generator
+    (the autoencoder), the discriminators (an ``nn.ModuleDict`` of ``di``,
+    ``dv``, ``df``), both optimizers, the generator's EMA (a copy of it that
+    takes no gradient) and the adaptive-augmentation probability and its
+    statistic (kept for the checkpoint's layout; ADA is not ported)."""
+
+    step: int
+    gen: nn.Module
+    disc: nn.Module
+    opt_g: Optimizer
+    opt_d: Optimizer
+    ema: nn.Module
+    ada_p: float = 0.0
+    ada_rt: float = 0.0
+
+    @staticmethod
+    def create(cfg, gen, disc):
+        ema = copy.deepcopy(gen).requires_grad_(False)
+        opt_g, opt_d = make_ae_optimizers(cfg, gen.parameters(), disc.parameters())
+        return AETrainState(0, gen, disc, opt_g, opt_d, ema, float(cfg.aug_p), 0.0)
+
+    def state_dict(self):
+        return {"step": self.step, "gen": self.gen.state_dict(), "disc": self.disc.state_dict(),
+                "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
+                "ema": self.ema.state_dict(), "ada_p": self.ada_p, "ada_rt": self.ada_rt}
+
+    def load_state_dict(self, state):
+        self.step = int(state["step"])
+        self.gen.load_state_dict(state["gen"])
+        self.disc.load_state_dict(state["disc"])
+        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_d.load_state_dict(state["opt_d"])
+        self.ema.load_state_dict(state["ema"])
+        self.ada_p, self.ada_rt = float(state["ada_p"]), float(state["ada_rt"])

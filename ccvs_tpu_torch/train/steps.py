@@ -1,16 +1,21 @@
-"""Train steps of the latent stage (counterpart of ``ccvs_tpu/train/steps.py``:
-``make_transformer_step`` and ``make_simple_step``).
+"""Train steps (counterpart of ``ccvs_tpu/train/steps.py``): the frame
+autoencoder's G, D and R1 steps, the latent transformer's step and the
+generic step of the state and STFT trainers.
 
-A step computes the loss and its gradients in eager PyTorch, records the
-global gradient norm and applies one optimizer update to the parameters in
-place. The JAX package's sharded variants (``state_shardings``, ``fsdp``,
+A step computes the loss and its gradients in eager PyTorch and applies one
+optimizer update to the parameters in place; each gradient is taken with
+respect to the parameters that step updates only (the autoencoder's G step
+runs the discriminators without computing their parameters' gradients). The
+JAX package's sharded variants (``state_shardings``, ``fsdp``,
 ``seq_parallel``) belong to the parallel layer, which is not ported: asking
 for them raises.
 """
 
 import torch
+from torch import nn
 
-from ccvs_tpu_torch.train.states import SimpleTrainState, make_transformer_optimizer
+from ccvs_tpu_torch.train.states import (AETrainState, SimpleTrainState, ema_update,
+                                         make_transformer_optimizer)
 
 
 def global_norm(grads):
@@ -23,6 +28,76 @@ def _mb_loss(transformer, mb, generator):
     return transformer.loss(mb["code"], state_code=mb.get("state_code"),
                             cond_code=mb.get("cond_code"), delta=mb.get("delta"),
                             lbl=mb.get("vid_lbl"), generator=generator)
+
+
+def _update(params, loss, opt):
+    """Gradients of ``loss`` into ``params``' ``.grad`` (only those), then
+    one update of ``opt``."""
+    for p in params:
+        p.grad = None
+    loss.backward(inputs=params)
+    opt.step()
+
+
+def _detached(tree):
+    return {k: None if v is None else v.detach() for k, v in tree.items()}
+
+
+def make_ae_steps(losses):
+    """``(init_state, g_step, d_step, r1_step)`` of the frame autoencoder
+    (``helpers/frame_autoencoder_trainer.py:49-79``) over the modules of
+    ``losses`` (an :class:`~ccvs_tpu_torch.train.ae_losses.AELosses`).
+
+    - ``init_state()``: an :class:`AETrainState` of ``losses.ae`` and an
+      ``nn.ModuleDict`` of the discriminators, with both Adam optimizers and
+      the EMA copy.
+    - ``g_step(state, batch, mode, generator=None)``: one generator update
+      on an image (``mode="img"``) or video batch, then the EMA; returns
+      ``(state, metrics, fake)`` with ``g_loss``. ``generator`` draws the
+      context-drop mask.
+    - ``d_step(state, batch, fake, mode)``: one discriminator update on
+      ``batch`` and the G step's ``fake``; returns ``(state, metrics)`` with
+      ``d_loss``.
+    - ``r1_step(state, batch, mode)``: one discriminator update on the lazy
+      R1 penalty (``r1_img`` / ``r1_vid``).
+
+    ``state.step`` counts iterations and is advanced by the trainer: an
+    iteration holds an image G step and, every ``vid_step_every``, a video
+    one."""
+    cfg = losses.cfg
+    disc = nn.ModuleDict({k: m for k, m in (("di", losses.di), ("dv", losses.dv),
+                                            ("df", losses.df)) if m is not None})
+
+    def init_state():
+        return AETrainState.create(cfg, losses.ae, disc)
+
+    def g_step(state, batch, mode, generator=None):
+        loss_fn = losses.img_generator_loss if mode == "img" else losses.vid_generator_loss
+        loss, (metrics, fake) = loss_fn(batch, generator)
+        _update(list(state.gen.parameters()), loss, state.opt_g)
+        if cfg.use_ema:
+            ema_update(state.ema, state.gen, cfg.ema_decay)
+        metrics["g_loss"] = loss
+        return state, _detached(metrics), _detached(fake)
+
+    def d_step(state, batch, fake, mode):
+        if mode == "img":
+            loss, (metrics, _) = losses.img_discriminator_loss(batch["img"], fake["img"],
+                                                               fake.get("z"))
+        else:
+            loss, metrics = losses.vid_discriminator_loss(batch["vid"], fake["vid"],
+                                                          fake.get("z"), fake.get("unc_vid"))
+        _update(list(state.disc.parameters()), loss, state.opt_d)
+        metrics["d_loss"] = loss
+        return state, _detached(metrics)
+
+    def r1_step(state, batch, mode):
+        loss = (losses.img_r1_loss(batch["img"]) if mode == "img"
+                else losses.vid_r1_loss(batch["vid"]))
+        _update(list(state.disc.parameters()), loss, state.opt_d)
+        return state, {"r1_" + mode: loss.detach()}
+
+    return init_state, g_step, d_step, r1_step
 
 
 def make_transformer_step(transformer, cfg, n_iter, state_shardings=None):

@@ -17,14 +17,17 @@ read with numpy alone. Translation:
   ``Embed`` like ``tok_emb``.
 
 One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
-``stft/...``) loads model by model with ``prefix``.
+``stft/...``) loads model by model with ``prefix``. The discriminators
+(``di/...``, ``dv/...``, ``df/...`` into an ``nn.ModuleDict`` of them) and
+VGG (``conv{i}/weight``, ``conv{i}/bias``) keep the JAX names as they are.
 
 Every parameter of the module must be filled and every key must land, or
 loading raises.
 
 :func:`export_params` is the reverse: a module's parameters as that flat
 dict, so that parameters the port trains load into the JAX package
-(``npz_params.unflatten_params``).
+(``npz_params.unflatten_params``): the GPT's, and the autoencoder's raw
+generator and EMA (``FrameAutoencoder`` modules) as the ``ae_gen`` tree.
 """
 
 import re

@@ -17,7 +17,8 @@ Phases, each printing its wall time:
    after a cache reorder, also replayed; K3 bit-equal to the CPU's at the
    int8 decode step's products), then timed (CUDA events, L2 flushed,
    median; K1 at the encode shapes of the rollouts, one re-encoded frame's,
-   the state quantizer's and the drums audio quantizer's (depth 16), K2 at
+   the state quantizer's and the drums audio quantizer's (depth 16), the
+   training steps' (phases 10 and 11), K2 at
    positions 63, 511, 1023, 1151 and 1279 and at batch 8, the beam's cache
    reorder, K3 at each product) beside
    its plain version, a PyTorch library call that the port never makes
@@ -69,7 +70,27 @@ Phases, each printing its wall time:
    twice, the state quantizer's indices the plain search's and the
    codebook's gradient that of the gather alone);
    (d) both trainers' ``run`` and resume, the checkpoint's state equal to
-   the trainer's, the npz mirror holding the JAX package's GPT tree.
+   the trainer's, the npz mirror holding the JAX package's GPT tree;
+11. autoencoder training: (a) a small fp32 configuration (``AE_CFG`` of
+   ``tests/test_train.py`` at 16 px with VGG, both discriminators, the
+   feature discriminator and the unconditional head), three iterations of
+   the six steps (G, D, R1 for images and video) free-running on the card,
+   each step repeated on the CPU from the card's state: metrics within
+   1e-4, each parameter's gradient within 1e-3 of its own largest entry
+   or 1e-6 of the step's (1e-3 in the G steps), the card's parameters and
+   second moments Adam's of its own gradients within fp32 rounding
+   (:func:`adam_b0_update`), its EMA that of its new parameters, K1's
+   indices those of the plain search; two planted faults (an update's
+   sign, a gradient's sign) shown to fail the check;
+   (b) full-width BAIR-256 (24 images, 4 clips of 4 frames, fp32 parameters
+   under bf16 compute, seeded VGG19, EMA), 2 warm-up and 5 timed
+   iterations, one with R1, K1 exactly 2 launches an iteration and 1 for
+   the eval; seconds an iteration, the split by step (CUDA events), the
+   dataset's host time a batch, the trainer's 8-thread loaders alone and
+   feeding 6 iterations, peak memory, a profile of an iteration and of R1;
+   (c) ``FrameAutoencoderTrainer.run`` with its eval, resume and npz mirror
+   (the JAX ``ae_gen`` keys), ``StftAutoencoderTrainer.run`` and resume,
+   ``cli.py train-ae`` then ``train-transformer --ae-ckpt``.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -77,6 +98,7 @@ without a result line. Without a CUDA device the script fails at once.
 """
 
 import json
+import math
 import os
 import random
 import statistics
@@ -223,14 +245,17 @@ def phase_kernels(records):
     # drums audio quantizer's 2 x 45 frames x 16 latents of depth 16 against
     # 1024 codes, and training's (phase 10): the BAIR step's encode of 16 x
     # 16 frames, the state step's of 96 images and its quantizer of 96 x 2
-    # states; timed but for the context re-encodes
+    # states, and the autoencoder's (phase 11): the image G step's 24 images
+    # and the video G step's 4 clips of 4 frames; timed but for the context
+    # re-encodes
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
                            (3072, 256, 16384, True), (64, 1, 128, True),
                            (5760, 512, 1024, True), (1920, 512, 1024, False),
                            (1440, 16, 1024, True), (16384, 512, 1024, True),
-                           (6144, 512, 1024, True), (192, 1, 128, True)):
+                           (6144, 512, 1024, True), (192, 1, 128, True),
+                           (1536, 512, 1024, True), (1024, 512, 1024, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -1538,6 +1563,594 @@ def phase_train(records, card):
     phase_train_runs()
 
 
+# ---------------- phase 11: the autoencoder's training ----------------
+
+
+def small_ae_config(**over):
+    """Phase 11's small configuration: ``tests/test_train.py``'s ``AE_CFG``
+    at 16 px (VGG19's fourth pooling needs 16 px), VGG on images and videos,
+    the feature discriminator, the unconditional head and backwarp
+    consistency on; image batches of 2 groups of 3, clips of 3 frames."""
+    import dataclasses
+
+    from ccvs_tpu_torch.config import AutoencoderConfig, Config, DataConfig
+
+    ae = AutoencoderConfig(
+        necf=8, necf_mult=(1, 2), ndcf=8, ndcf_mult=(1, 2), z_size=16, z_num=32, z_shape=(8, 8),
+        max_dim=16, inter_p=0.5, skip_memory=2, skip_context=(1, 2), use_di=True, use_dv=True,
+        use_df=True, use_unc_gen=True, use_vgg_img=True, use_vgg_vid=True,
+        use_direct_recovery_img=True, use_direct_recovery_vid=True,
+        use_backwarp_consistency_img=True, slide_inter=True, n_consecutive_img=2, vid_len=3,
+        load_elastic_view=True, elastic_corruption=True, use_elastic_flow_recovery=True,
+        d_reg_every=2, stddev_group=2)
+    data = DataConfig(dataset="synthetic", max_dim=16, true_dim=32, vid_len=3, batch_size_img=6,
+                      batch_size_vid=4, n_consecutive_img=2, img_out_of_n=8, num_workers=2,
+                      load_elastic_view=True, elastic_corruption=True, elastic_alpha=1.0,
+                      elastic_sigma=0.2)
+    return Config(name="ae_small", data=data, ae=dataclasses.replace(ae, **over), n_iter=3,
+                  save_latest_freq=2, log_freq=None)
+
+
+# the JAX package's ae_gen tree of small_ae_config() (key: shape), as the AE
+# trainer's npz mirror must hold it; a CPU test derives it from the JAX
+# package (tests/test_torch_ae_trainer.py)
+AE_MIRROR_KEYS = {
+    "decoder/block0/conv/bias": (16,),
+    "decoder/block0/conv/weight": (16, 16, 1, 1),
+    "decoder/block1/conv1/conv/bias": (16,),
+    "decoder/block1/conv1/conv/weight": (16, 16, 3, 3),
+    "decoder/block1/conv2/conv/bias": (8,),
+    "decoder/block1/conv2/conv/weight": (8, 16, 3, 3),
+    "decoder/block1/skip/conv/weight": (8, 16, 1, 1),
+    "decoder/block2/conv/bias": (3,),
+    "decoder/block2/conv/weight": (3, 8, 1, 1),
+    "decoder/inter_block0/matching/convs0/conv/bias": (128,),
+    "decoder/inter_block0/matching/convs0/conv/weight": (128, 49, 3, 3),
+    "decoder/inter_block0/matching/convs1/conv/bias": (64,),
+    "decoder/inter_block0/matching/convs1/conv/weight": (64, 128, 3, 3),
+    "decoder/inter_block0/matching/convs2/conv/bias": (32,),
+    "decoder/inter_block0/matching/convs2/conv/weight": (32, 64, 3, 3),
+    "decoder/inter_block0/matching/flow_head/conv/bias": (2,),
+    "decoder/inter_block0/matching/flow_head/conv/weight": (2, 32, 3, 3),
+    "decoder/inter_block0/matching/occ_head/conv/bias": (1,),
+    "decoder/inter_block0/matching/occ_head/conv/weight": (1, 32, 3, 3),
+    "decoder/inter_block0/subpixel/convs0/conv/bias": (128,),
+    "decoder/inter_block0/subpixel/convs0/conv/weight": (128, 19, 3, 3),
+    "decoder/inter_block0/subpixel/convs1/conv/bias": (64,),
+    "decoder/inter_block0/subpixel/convs1/conv/weight": (64, 128, 3, 3),
+    "decoder/inter_block0/subpixel/convs2/conv/bias": (32,),
+    "decoder/inter_block0/subpixel/convs2/conv/weight": (32, 64, 3, 3),
+    "decoder/inter_block0/subpixel/flow_head/conv/bias": (2,),
+    "decoder/inter_block0/subpixel/flow_head/conv/weight": (2, 32, 3, 3),
+    "decoder/inter_block0/subpixel/occ_head/conv/bias": (1,),
+    "decoder/inter_block0/subpixel/occ_head/conv/weight": (1, 32, 3, 3),
+    "decoder/inter_block1/matching/convs0/conv/bias": (128,),
+    "decoder/inter_block1/matching/convs0/conv/weight": (128, 49, 3, 3),
+    "decoder/inter_block1/matching/convs1/conv/bias": (64,),
+    "decoder/inter_block1/matching/convs1/conv/weight": (64, 128, 3, 3),
+    "decoder/inter_block1/matching/convs2/conv/bias": (32,),
+    "decoder/inter_block1/matching/convs2/conv/weight": (32, 64, 3, 3),
+    "decoder/inter_block1/matching/flow_head/conv/bias": (2,),
+    "decoder/inter_block1/matching/flow_head/conv/weight": (2, 32, 3, 3),
+    "decoder/inter_block1/matching/occ_head/conv/bias": (1,),
+    "decoder/inter_block1/matching/occ_head/conv/weight": (1, 32, 3, 3),
+    "decoder/inter_block1/matching/upsample_flow/weight": (2, 1, 4, 4),
+    "decoder/inter_block1/matching/upsample_occ/weight": (1, 1, 4, 4),
+    "decoder/inter_block1/subpixel/convs0/conv/bias": (128,),
+    "decoder/inter_block1/subpixel/convs0/conv/weight": (128, 11, 3, 3),
+    "decoder/inter_block1/subpixel/convs1/conv/bias": (64,),
+    "decoder/inter_block1/subpixel/convs1/conv/weight": (64, 128, 3, 3),
+    "decoder/inter_block1/subpixel/convs2/conv/bias": (32,),
+    "decoder/inter_block1/subpixel/convs2/conv/weight": (32, 64, 3, 3),
+    "decoder/inter_block1/subpixel/flow_head/conv/bias": (2,),
+    "decoder/inter_block1/subpixel/flow_head/conv/weight": (2, 32, 3, 3),
+    "decoder/inter_block1/subpixel/occ_head/conv/bias": (1,),
+    "decoder/inter_block1/subpixel/occ_head/conv/weight": (1, 32, 3, 3),
+    "encoder/block0/conv/bias": (8,),
+    "encoder/block0/conv/weight": (8, 3, 1, 1),
+    "encoder/block1/conv1/conv/bias": (8,),
+    "encoder/block1/conv1/conv/weight": (8, 8, 3, 3),
+    "encoder/block1/conv2/conv/bias": (16,),
+    "encoder/block1/conv2/conv/weight": (16, 8, 3, 3),
+    "encoder/block1/skip/conv/weight": (16, 8, 1, 1),
+    "encoder/block2/conv/bias": (16,),
+    "encoder/block2/conv/weight": (16, 16, 1, 1),
+    "quantizer/embedding": (32, 16),
+}
+
+
+AE_STEPS = [("g", "img"), ("d", "img"), ("r1", "img"), ("g", "vid"), ("d", "vid"), ("r1", "vid")]
+
+
+GRAD_TOL = 1e-3  # of each parameter's own largest gradient entry, card against CPU
+# or, where larger, a floor of the step's largest entry: in the D and R1 steps a
+# few fp32 roundings of the largest terms; in the G steps 1e-3. These run the
+# decoders' warps (grid_sample's bilinear derivative jumps where a sample crosses
+# a pixel centre), leaky ReLUs and VGG's max-pools: where rounding puts an entry
+# on the other side of such a kink on the two devices, its share of a gradient
+# changes by a finite step, and one entry can move a bias's gradient by ~1e-3
+# of the step's largest
+GRAD_FLOOR = {("g", "img"): 1e-3, ("g", "vid"): 1e-3}
+GRAD_FLOOR_DEFAULT = 1e-6
+
+
+def adam_b0_update(p0, v0, grad, group, t):
+    """One update of Adam with ``beta1 = 0`` and no weight decay (the
+    autoencoder's optimizers) in float64: the parameters and second moment
+    it makes of ``p0``, ``v0`` and ``grad`` at ``group``'s lr, beta2 and eps
+    and update count ``t``, and the bound on an fp32 implementation's
+    parameters: two fp32 spacings of the parameter and eight of the update."""
+    import torch
+
+    p0, v0, g = (x.detach().double().cpu() for x in (p0, v0, grad))
+    b2 = group["betas"][1]
+    v = b2 * v0 + (1 - b2) * g * g
+    upd = group["lr"] * g / ((v / (1 - b2**t)).sqrt() + group["eps"])
+    e32 = torch.finfo(torch.float32).eps
+    return p0 - upd, v, 2 * e32 * p0.abs() + 8 * e32 * upd.abs()
+
+
+def _excess(got, want, bound):
+    return float(((got.detach().double().cpu() - want.detach().double().cpu()).abs()
+                  - bound).max())
+
+
+def _ae_batches(cfg, n, kinds=("img", "vid")):
+    """``n`` batches of each kind in ``kinds`` of ``cfg.data``'s dataset:
+    image groups (``batch_size_img`` images) and clips of ``ae.vid_len``
+    frames (``batch_size_vid``); a list of ``(img, vid)`` pairs, None for a
+    kind left out."""
+    import dataclasses
+
+    from ccvs_tpu_torch.data import create_dataset, group_collate
+
+    group = cfg.data.n_consecutive_img + (1 if cfg.data.load_elastic_view else 0)
+    sizes = {"img": cfg.data.batch_size_img // group, "vid": cfg.data.batch_size_vid}
+    ds = {"img": create_dataset(cfg.data, phase="train", load_vid=False),
+          "vid": create_dataset(dataclasses.replace(cfg.data, vid_len=cfg.ae.vid_len),
+                                phase="train", load_vid=True)}
+    return [tuple(group_collate([ds[k][i * sizes[k] + j] for j in range(sizes[k])])
+                  if k in kinds else None for k in ("img", "vid")) for i in range(n)]
+
+
+def _ae_step(tr, state, kind, mode, batch, fake):
+    if kind == "g":
+        state, m, fake = tr.g_step(state, batch, mode)
+        return state, m, fake, state.gen, state.opt_g
+    if kind == "d":
+        state, m = tr.d_step(state, batch, fake, mode)
+    else:
+        state, m = tr.r1_step(state, batch, mode)
+    return state, m, fake, state.disc, state.opt_d
+
+
+def _ae_step_check(step):
+    """The worst of one step held against the CPU (``step``: the metrics,
+    the card's parameters, gradients, second moments and EMA before and
+    after, the CPU's gradients, optimizer group and count, the gradient
+    floor): the metrics' relative difference; each parameter's gradient
+    difference over its tolerance, ``GRAD_TOL`` of its own largest CPU
+    entry or, where larger, the floor of the step's largest, as ``(ratio,
+    name)``, and
+    over the step's largest entry alone (``grad_err``); the excess of the
+    card's
+    parameters and second moments over what :func:`adam_b0_update` makes of
+    the card's own gradients at the CPU's lr, beta2 and count, and of the
+    card's EMA over the EMA of its new parameters (``ema_decay``), each as
+    ``(excess, name)``; a check passes when the ratio is at most 1 and the
+    excesses at most 0."""
+    import torch
+
+    cm, gm = step["metrics"]
+    m_err = max(abs(float(gm[k]) - float(v)) / max(abs(float(v)), 1e-12) for k, v in cm.items())
+    grads, grad_err, update = (0.0, ""), (0.0, ""), (-float("inf"), "")
+    tiny = torch.finfo(torch.float32).tiny
+    scale = max(float(g.abs().max()) for g in step["cgrad"].values())
+    for n, cg in step["cgrad"].items():
+        gg = step["ggrad"][n].detach().double().cpu()
+        cg = cg.detach().double().cpu()
+        diff = float((gg - cg).abs().max())
+        tol = max(GRAD_TOL * float(cg.abs().max()), step["floor"] * scale)
+        grads = max(grads, (diff / tol if tol else (0.0 if diff == 0 else float("inf")), n))
+        grad_err = max(grad_err, (diff / scale, n))
+        p0, v0 = step["before"][n]
+        want, v, bound = adam_b0_update(p0, v0, gg, step["group"], step["count"])
+        update = max(update, (_excess(step["after"][n], want, bound), n),
+                     (_excess(step["v"][n], v, 4 * torch.finfo(torch.float32).eps * v + tiny),
+                      "exp_avg_sq." + n))
+    ema = (-float("inf"), "")
+    if step["ema"] is not None:
+        d, e32 = step["ema_decay"], torch.finfo(torch.float32).eps
+        for n, (e0, e1) in step["ema"].items():
+            e0 = e0.detach().double().cpu()
+            want = d * e0 + (1 - d) * step["after"][n].detach().double().cpu()
+            ema = max(ema, (_excess(e1, want, 2 * e32 * (want.abs() + e0.abs())), "ema." + n))
+    return {"metrics": m_err, "grads": grads, "grad_err": grad_err, "update": update,
+            "ema": ema}
+
+
+def _ae_step_passes(res):
+    return (res["metrics"] <= 1e-4 and res["grads"][0] <= 1 and res["update"][0] <= 0
+            and res["ema"][0] <= 0)
+
+
+def phase_ae_reference():
+    """(a) The small fp32 configuration: three iterations of the six steps
+    (G, D, R1 for images and for video; R1 every 2) free-running on the
+    card; each step also run on the CPU from the card's state before it
+    (parameters, EMA, optimizer states, and the G step's fake for the D
+    step) and held to it by :func:`_ae_step_check`: the metrics within 1e-4
+    relative, each parameter's gradient within ``GRAD_TOL`` of its own
+    largest entry or ``GRAD_FLOOR`` of the step's, the card's parameters
+    and second moments those of Adam on its own gradients within fp32
+    rounding, its EMA that of its new parameters; K1's indices of every G
+    step held to the plain search's by :func:`check_vq`. Two faults are
+    then planted in the last step and shown to fail the check: the sign of
+    the update of the parameter with the smallest gradient flipped, and
+    the sign of its gradient flipped (with the update that follows)."""
+    import copy
+
+    import torch
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    cfg = small_ae_config()
+    cpu = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cpu")
+    cpu.init_params()
+    gpu = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cuda")
+    gpu.losses.vgg.load_state_dict(cpu.losses.vgg.state_dict())
+    cstate, gstate = cpu.init_state(), gpu.init_state()
+    gstate.load_state_dict(cstate.state_dict())
+    ties = []
+
+    def check_k1(module, args):  # on the card, before the step's K1 launch
+        z = args[0].detach()
+        ties.append(check_vq(z.reshape(-1, z.shape[-1]), module.embedding.detach())[0])
+
+    hook = gpu.ae.quantizer.register_forward_pre_hook(check_k1)
+    worst = {"metrics": 0.0, "grads": (0.0, ""), "grad_err": (0.0, ""),
+             "update": (-float("inf"), ""), "ema": (-float("inf"), "")}
+    keys, g_losses, n_steps = set(), [], 0
+    for it, (bi, bv) in enumerate(_ae_batches(cfg, 3)):
+        batch = {dev: {"img": to_device(bi, dev), "vid": to_device(bv, dev)}
+                 for dev in ("cpu", "cuda")}
+        fake = {}
+        for kind, mode in AE_STEPS:
+            if kind == "r1" and it % cfg.ae.d_reg_every:
+                continue
+            cstate.load_state_dict(copy.deepcopy(gstate.state_dict()))
+            gmod, gopt = (gstate.gen, gstate.opt_g) if kind == "g" else (gstate.disc, gstate.opt_d)
+            before = {}
+            for n, p in gmod.named_parameters():
+                v0 = gopt.opt.state.get(p, {}).get("exp_avg_sq")
+                before[n] = (p.detach().clone(),
+                             torch.zeros_like(p) if v0 is None else v0.detach().clone())
+            ema0 = ({n: e.detach().clone() for n, e in gstate.ema.named_parameters()}
+                    if kind == "g" else None)
+            cfake = None if kind == "g" else {k: None if v is None else v.cpu()
+                                              for k, v in fake[mode].items()}
+            gstate, gm, gfake, gmod, gopt = _ae_step(gpu, gstate, kind, mode,
+                                                     batch["cuda"][mode], fake.get(mode))
+            cstate, cm, _, cmod, copt = _ae_step(cpu, cstate, kind, mode, batch["cpu"][mode],
+                                                 cfake)
+            fake[mode] = gfake
+            step = {
+                "metrics": (cm, gm), "group": copt.opt.param_groups[0], "count": copt.count,
+                "cgrad": {n: p.grad for n, p in cmod.named_parameters()},
+                "ggrad": {n: p.grad for n, p in gmod.named_parameters()},
+                "before": before, "after": dict(gmod.named_parameters()),
+                "v": {n: gopt.opt.state[p]["exp_avg_sq"] for n, p in gmod.named_parameters()},
+                "ema": None, "ema_decay": cfg.ae.ema_decay,
+                "floor": GRAD_FLOOR.get((kind, mode), GRAD_FLOOR_DEFAULT)}
+            if ema0 is not None:
+                step["ema"] = {n: (ema0[n], e) for n, e in gstate.ema.named_parameters()}
+            res = _ae_step_check(step)
+            n_steps += 1
+            keys |= set(cm)
+            if "g_loss" in cm:
+                g_losses.append(round(float(cm["g_loss"]), 5))
+            for k in worst:
+                worst[k] = max(worst[k], res[k])
+            log(f"    train ae small {it} {kind} {mode}: metrics within {res['metrics']:.3g} "
+                f"relative, gradients at {res['grads'][0]:.3g} of their tolerance "
+                f"({res['grads'][1]}), within {res['grad_err'][0]:.3g} of the step's largest "
+                f"({res['grad_err'][1]}); excess of the update {res['update'][0]:.3g} "
+                f"({res['update'][1]}), of the EMA {res['ema'][0]:.3g}")
+    hook.remove()
+    if not _ae_step_passes(worst):
+        raise AssertionError(f"train ae small: the card differs from the CPU beyond the "
+                             f"tolerances: {worst}")
+    if len(ties) != 6:
+        raise AssertionError(f"train ae small: K1 checked {len(ties)} times, expected 6")
+    # planted faults in the last step, on its parameter of smallest gradient:
+    # its update's sign flipped; its gradient's sign flipped, with the
+    # update and second moment that Adam makes of it
+    name = min((float(g.abs().max()), n) for n, g in step["cgrad"].items()
+               if float(g.abs().max()) > 0)[1]
+    p0, v0 = step["before"][name]
+    flipped = dict(step, after={**step["after"], name: 2 * p0 - step["after"][name].detach()})
+    g = -step["ggrad"][name].detach()
+    p, v, _ = adam_b0_update(p0, v0, g, step["group"], step["count"])
+    negated = dict(step, ggrad={**step["ggrad"], name: g}, after={**step["after"], name: p},
+                   v={**step["v"], name: v})
+    caught = [_ae_step_check(s) for s in (flipped, negated)]
+    if any(_ae_step_passes(r) for r in caught):
+        raise AssertionError(f"train ae small: a planted fault in {name} passed the check")
+    log(f"train ae small: 3 iterations ({n_steps} steps) free-running on the card, each step "
+        f"held to the CPU's from the card's state: metrics within {worst['metrics']:.3g} "
+        f"relative (tolerance 1e-4), gradients at most {worst['grads'][0]:.3g} of their "
+        f"tolerance ({worst['grads'][1]}; {GRAD_TOL} of their own largest entry or "
+        f"{GRAD_FLOOR_DEFAULT} of the step's, {GRAD_FLOOR[('g', 'vid')]} in the G steps), "
+        f"within {worst['grad_err'][0]:.3g} of the step's largest entry "
+        f"({worst['grad_err'][1]}), parameters and second "
+        f"moments Adam's of the card's gradients (largest excess over fp32 rounding "
+        f"{worst['update'][0]:.3g}), EMA that of the new parameters (excess "
+        f"{worst['ema'][0]:.3g}); K1's indices the plain search's in all 6 G steps "
+        f"({sum(ties)} near-ties); terms {sorted(keys)}")
+    log(f"train ae small: planted faults in {name} (largest gradient "
+        f"{float(step['cgrad'][name].abs().max()):.3g}) caught: its update's sign flipped "
+        f"(excess {caught[0]['update'][0]:.3g}), its gradient's sign flipped ("
+        f"{caught[1]['grads'][0]:.3g} of its tolerance)")
+    log(f"train ae small: g_loss by G step {g_losses}")
+
+
+def phase_ae_bairhd(records, card):
+    """(b) Full-width BAIR-256: ``bairhd_config()`` with synthetic data at
+    the reference's per-GPU batch (24 images: 8 groups of [corrupted context,
+    next frame, distorted view]; 4 clips of 4 frames), fp32 parameters under
+    bf16 compute, seeded VGG19, both discriminators, EMA. 2 warm-up and 5
+    timed iterations on one fixed batch pair, the fifth an R1 iteration;
+    K1 exactly 2 launches an iteration and 1 for the eval's
+    reconstruction; then the trainer's loaders (:func:`ae_loader_fed`) and
+    profiles of an iteration and of R1."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    base = bairhd_config()
+    cfg = base.replace(name="train_ae_bairhd", data=dataclasses.replace(
+        base.data, dataset="synthetic", batch_size_img=24, batch_size_vid=4))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (bi, _), = _ae_batches(cfg, 1, kinds=("img",))
+    t_img = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (_, bv), = _ae_batches(cfg, 1, kinds=("vid",))
+    t_vid = time.perf_counter() - t0
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    n_gen = sum(p.numel() for p in state.gen.parameters())
+    n_disc = sum(p.numel() for p in state.disc.parameters())
+    img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+    log(f"train ae bairhd: {n_gen / 1e6:.1f} M generator and {n_disc / 1e6:.1f} M discriminator "
+        f"parameters in fp32, bf16 compute, remat {cfg.ae.remat}; image batch "
+        f"{tuple(img['img'].shape)}, video batch {tuple(vid['vid'].shape)}; the dataset's host "
+        f"time for one batch of each kind (one thread): images {t_img:.3f} s, clips "
+        f"{t_vid:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    # iteration numbers: R1 runs when it % 16 == 0, in the last timed one only
+    its = [1, 2, 3, 4, 5, 6, 16]
+    split, wall, losses = [], [], []
+    for i, it in enumerate(its):
+        if i == 2:
+            vq_indices.launches = 0
+            t_timed = time.perf_counter()
+        events, fake, ms = [], {}, {}
+        w0 = time.perf_counter()
+        for kind, mode in AE_STEPS:
+            if kind == "r1" and it % cfg.ae.d_reg_every:
+                continue
+            e0, e1 = _events()
+            e0.record()
+            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                  img if mode == "img" else vid, fake.get(mode))
+            e1.record()
+            events.append((f"{kind} {mode}", e0, e1))
+            ms.update(m)
+        state.step = it + 1
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - w0)
+        split.append({name: e0.elapsed_time(e1) for name, e0, e1 in events})
+        losses.append({k: float(v) for k, v in ms.items()})
+    dt = _synced_since(t_timed)
+    launches = vq_indices.launches
+    _, psnr = tr.rec_eval(state.ema, img["img"][:16])
+    torch.cuda.synchronize()
+    launches_eval = vq_indices.launches - launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 2 * 5 or launches_eval != 1:
+        raise AssertionError(f"train ae bairhd: K1 launched {launches} times in 5 iterations "
+                             f"(expected 10) and {launches_eval} in the eval (expected 1)")
+    records["vq_argmin"]["launches_by_rollout"]["train_ae_bairhd (5 iterations + 1 eval)"] = (
+        launches + launches_eval)
+    for m in losses:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train ae bairhd: non-finite {bad}")
+    if not math.isfinite(float(psnr)):
+        raise AssertionError(f"train ae bairhd: eval PSNR {float(psnr)}")
+    plain = [w for w, it in zip(wall[2:], its[2:]) if it % 16]
+    state = ae_loader_fed(tr, state, statistics.median(plain))
+    log(f"train ae bairhd: {dt / 5:.4f} s an iteration over 5 timed iterations (one with R1); "
+        f"without R1 median {statistics.median(plain):.4f} s, with R1 {wall[-1]:.4f} s "
+        f"(host clock, synchronized); peak memory {peak:.2f} GiB; K1 {launches} launches in 5 "
+        f"iterations + {launches_eval} in the eval; EMA rec PSNR {float(psnr):.3f} dB; "
+        f"on {card}")
+    for name in split[-1]:
+        vals = [s[name] for s, it in zip(split[2:], its[2:]) if name in s]
+        log(f"    {name}: median {statistics.median(vals):9.2f} ms (CUDA events, "
+            f"{len(vals)} iterations)")
+    log(f"train ae bairhd: losses of the last iteration "
+        f"{ {k: round(v, 4) for k, v in losses[-1].items()} }")
+    box = [state]
+
+    def one_iteration():
+        box[0], _, _, _ = tr.iteration(box[0], 7, img, vid)
+
+    wall1, busy, kernels, _ = device_profile(one_iteration)
+    if not kernels:
+        log(f"train ae bairhd profile: wall {wall1:.4f} s; device time not measured")
+        return
+    log(f"train ae bairhd profile, one iteration without R1: wall {wall1:.4f} s, device busy "
+        f"{busy:.4f} s ({100 * busy / wall1:.1f}% of wall)")
+    for kname, t in kernels[:10]:
+        log(f"    {100 * t / busy:5.1f}%  {t * 1e3:9.3f} ms  {kname[:110]}")
+
+    def one_r1():
+        box[0], _ = tr.r1_step(box[0], img, "img")
+
+    wall1, busy, kernels, count = device_profile(one_r1)
+    log(f"train ae bairhd profile, the image R1 step: wall {wall1:.4f} s, device busy "
+        f"{busy:.4f} s ({100 * busy / wall1:.1f}% of wall)")
+    for kname, t in kernels[:8]:
+        log(f"    {100 * t / busy:5.1f}%  {t * 1e3:9.3f} ms  {count[kname]:5d}x  {kname[:100]}")
+    convs = r1_convolutions(one_r1)
+    log(f"train ae bairhd: the image R1 step dispatches {sum(convs.values())} convolutions: "
+        + ", ".join(f"{n} {kind}" for kind, n in convs.most_common()))
+
+
+def ae_loader_fed(tr, state, fixed_s):
+    """The trainer's own loaders (``make_loaders``: ``num_workers`` threads
+    each, 2 batches prefetched): one epoch of each alone, its batches' host
+    seconds as they arrive, then 6 iterations without R1 fed by them (the
+    image loader's epoch of 4 batches restarts once), each against
+    ``fixed_s``, the median second an iteration on a fixed batch."""
+    import torch
+    from ccvs_tpu_torch.train.ae_trainer import cycle_loader, to_device
+
+    img_loader, vid_loader = tr.make_loaders()
+    for name, loader in (("image", img_loader), ("clip", vid_loader)):
+        times, t0 = [], time.perf_counter()
+        for _ in loader:
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        log(f"train ae bairhd loader: one epoch of {len(times)} {name} batches at "
+            f"{loader.num_workers} threads: the first {times[0]:.3f} s, then median "
+            f"{statistics.median(times[1:]):.3f} s a batch (max {max(times[1:]):.3f} s)")
+    img_it, vid_it = cycle_loader(img_loader), cycle_loader(vid_loader)
+    fed = []
+    for it in range(17, 23):
+        w0 = time.perf_counter()
+        img, vid = to_device(next(img_it), "cuda"), to_device(next(vid_it), "cuda")
+        state, _, _, _ = tr.iteration(state, it, img, vid)
+        torch.cuda.synchronize()
+        fed.append(time.perf_counter() - w0)
+    img_it.close()
+    vid_it.close()
+    log(f"train ae bairhd loader: 6 iterations without R1 fed by the loaders: median "
+        f"{statistics.median(fed):.4f} s, max {max(fed):.4f} s, against {fixed_s:.4f} s on a "
+        f"fixed batch (host clock, synchronized; each {[round(x, 4) for x in fed]})")
+    return state
+
+
+def r1_convolutions(fn):
+    """The convolutions ``fn()`` dispatches, by kind: a depthwise blur
+    (``groups`` = channels), the weight gradient of one such group (an
+    input of one item whose channels are the batch, fp32), others by dtype."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kinds = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func == torch.ops.aten.convolution.default:
+                x, w, groups = args[0], args[1], args[-1]
+                if groups > 1:
+                    kinds["depthwise (grouped)"] += 1
+                elif x.shape[0] == 1:
+                    kinds[f"per-group, {x.dtype} (batch as channels)"] += 1
+                else:
+                    kinds[f"other {x.dtype}"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return kinds
+
+
+def phase_ae_runs():
+    """(c) ``FrameAutoencoderTrainer.run`` with the eval, its resume and npz
+    mirror (the JAX package's ``ae_gen`` keys); ``StftAutoencoderTrainer.run``
+    on seeded spectrogram batches and its resume; ``cli.py train-ae`` then
+    ``train-transformer --ae-ckpt`` at the small configuration."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ccvs_tpu_torch import cli
+    from ccvs_tpu_torch.config import StftConfig, TransformerConfig
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
+    from ccvs_tpu_torch.train.state_trainer import StftAutoencoderTrainer
+    from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = small_ae_config().replace(save_path=tmp, npz_mirror=os.path.join(tmp, "m.npz"))
+        tr = FrameAutoencoderTrainer(cfg)
+        ran = tr.run(n_iter=3, eval_every=2)
+        fresh = FrameAutoencoderTrainer(cfg)
+        loaded = CheckpointManager(os.path.join(tmp, "checkpoints", cfg.name)).load(
+            "qvid", "latest", target=fresh.init_state())
+        same = all(torch.equal(a, b) for a, b in zip(loaded.ema.parameters(),
+                                                      ran.ema.parameters()))
+        if not (loaded.step == ran.step == 3 and same):
+            raise AssertionError("train ae run: the resumed state differs from the saved one")
+        if FrameAutoencoderTrainer(cfg).run(n_iter=4, resume=True).step != 4:
+            raise AssertionError("train ae run: the resumed run did not reach step 4")
+        with np.load(cfg.npz_mirror) as z:
+            keys = {k[len("ae_gen/"):]: tuple(z[k].shape) for k in z.files}
+        if keys != AE_MIRROR_KEYS:
+            raise AssertionError(f"train ae run: npz mirror keys {sorted(keys)} are not the JAX "
+                                 "package's ae_gen tree")
+        with open(os.path.join(tmp, "logs", cfg.name, "metrics.jsonl")) as f:
+            psnr = [d["qvid_eval/rec_psnr"] for d in map(json.loads, f)
+                    if "qvid_eval/rec_psnr" in d]
+        if len(psnr) != 2 or not all(math.isfinite(x) for x in psnr):
+            raise AssertionError(f"train ae run: eval PSNRs {psnr}, expected 2 finite ones")
+        scfg = cfg.replace(name="stft_small", stft=StftConfig(stft_num=32), n_iter_eval=1)
+        rng = np.random.RandomState(0)
+        spec = [{"stft": rng.uniform(-1, 1, (2, 3, 64, 16, 1)).astype(np.float32)}
+                for _ in range(4)]
+        st = StftAutoencoderTrainer(scfg)
+        st.make_loader = lambda: spec
+        first = st.run(n_iter=3)
+        st2 = StftAutoencoderTrainer(scfg)
+        st2.make_loader = lambda: spec
+        if first.step != 3 or st2.run(n_iter=4, resume=True).step != 4:
+            raise AssertionError("train ae run: the STFT trainer did not run and resume")
+        gpt = TransformerConfig(z_num=32, z_len=128, z_chunk=64, num_blocks=2, cond_len=64,
+                                n_layer=2, n_head=2, n_embd=32, z_shape=(8, 8))
+        ccfg = cfg.replace(name="cli_ae", n_iter=2, npz_mirror="", gpt=gpt,
+                           data=dataclasses.replace(cfg.data, vid_len=2))
+        path = os.path.join(tmp, "cli_config.json")
+        with open(path, "w") as f:
+            f.write(ccfg.to_json())
+        cli.main(["train-ae", "--load-config", path])
+        cli.main(["train-transformer", "--load-config", path, "--name", "cli_gpt",
+                  "--ae-ckpt", os.path.join(tmp, "checkpoints", "cli_ae")])
+        if CheckpointManager(os.path.join(tmp, "checkpoints", "cli_gpt")).step_of(
+                "transformer") != 2:
+            raise AssertionError("train ae run: cli train-transformer did not take 2 steps")
+    log(f"train ae run: FrameAutoencoderTrainer ran 3 iterations (rec PSNR at "
+        f"{[round(x, 3) for x in psnr]} dB), its latest checkpoint "
+        f"resumed equal and continued to 4; the npz mirror holds the JAX ae_gen tree's "
+        f"{len(AE_MIRROR_KEYS)} keys; StftAutoencoderTrainer ran 3 and resumed to 4; cli "
+        f"train-ae then train-transformer --ae-ckpt ran 2 iterations each")
+
+
+def phase_ae_train(records, card):
+    random.seed(0)
+    phase_ae_reference()
+    phase_ae_bairhd(records, card)
+    phase_ae_runs()
+
+
 def main():
     import torch
 
@@ -1588,6 +2201,8 @@ def main():
         phase_serving(records, card)
     with phase("10 train"):
         phase_train(records, card)
+    with phase("11 autoencoder training"):
+        phase_ae_train(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

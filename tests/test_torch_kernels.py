@@ -34,7 +34,7 @@ def cuda():
                                    (640, 16384, 256), (128, 1024, 512), (64, 128, 1),
                                    (3072, 16384, 256), (5760, 1024, 512), (1440, 1024, 16),
                                    (128, 1024, 16), (16384, 1024, 512), (6144, 1024, 512),
-                                   (192, 128, 1)])
+                                   (192, 128, 1), (1536, 1024, 512), (1024, 1024, 512)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
     """K1 on the card: indices equal to the plain version's, near-ties aside.
     The shapes of the rollouts: BAIR's encode (2048) and context re-encode
@@ -45,7 +45,8 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
     pre-pass; 1440 rows, and 128), a ragged one, and training's: the
     full-width BAIR step's encode of 16 clips of 16 frames (16384), the
     state step's of 96 images (6144) and its quantizer of 96 x 2 states
-    (192 rows, depth 1)."""
+    (192 rows, depth 1), and the autoencoder's image G step (24 images:
+    1536) and video G step (4 clips of 4 frames: 1024)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -326,6 +327,35 @@ def test_vq_gradient_contract_on_card(cuda):
     for a, b in zip(grads["cpu"], grads["cuda"]):
         assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-9)
     assert float(grads["cuda"][2].abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1536, 1024])
+def test_vq_codebook_gradient_at_ae_training_shapes(cuda, n):
+    """The autoencoder's G steps quantize (n, 512) latents against 1024
+    codes through K1 (n = 1536 for 24 images, 1024 for 4 clips of 4
+    frames): the indices are the plain search's, and the codebook's
+    gradient (the VQ loss and a weighted sum of ``z_q``) equals the plain
+    search's on the CPU, within rtol 1e-5 (the gather's backward adds in
+    another order on the card)."""
+    g = torch.Generator().manual_seed(n)
+    z = torch.randn(n, 512, generator=g)
+    w = torch.randn(n, 512, generator=g)
+    cb = torch.randn(1024, 512, generator=g) * 0.5
+    out = {}
+    for dev in ("cpu", cuda):
+        q = VectorQuantizer(1024, 512).to(dev)
+        with torch.no_grad():
+            q.embedding.copy_(cb)
+        before = vq_indices.launches
+        z_q, loss, (_, idx) = q(z.to(dev).requires_grad_(True))
+        ((w.to(dev) * z_q).sum() + loss).backward()
+        assert vq_indices.launches == before + (dev != "cpu")
+        out[str(dev)] = idx.cpu(), q.embedding.grad.cpu()
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    want = out["cpu"][1]
+    assert float(want.abs().max()) > 0
+    assert torch.allclose(out["cuda"][1], want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.gpu

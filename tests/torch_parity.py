@@ -107,3 +107,36 @@ def set_fp32():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return jnp.float32
+
+
+# XLA's CPU backend at optimization level 0 and without its expensive LLVM
+# passes: the JAX references of the autoencoder's training compile in about
+# two thirds of the time, and compute the same functions (rounding aside)
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn):
+    """``jax.jit(fn)`` compiled with :data:`FAST_COMPILE` at its first call;
+    later calls must pass arguments of the same shapes."""
+    compiled = []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE))
+        return compiled[0](*args)
+
+    return call
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for a module's PyTorch work, then the previous
+    count: the tier-1 run puts six test processes on the CPU's cores, and a
+    process's default of one OpenMP thread a core oversubscribes them, which
+    slows the many small operations of a small model's backward pass
+    several times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
