@@ -309,6 +309,41 @@ class StftConfig:
     weight_decay: float = 0.0
 
 
+# The JAX package's config fields that the port does not have, by group
+# (``config`` for the top level), with their defaults there: options of
+# slices not ported yet (``ROADMAP.md``, queue 1) and the JAX package's own
+# knobs. ``tests/test_torch_generate.py`` holds this table to
+# ``dataclasses.fields`` of ``ccvs_tpu/config.py``.
+JAX_ONLY_DEFAULTS = {
+    "ae": {
+        "z_mult": 1, "aspect_ratio": 1.0, "normalize_out": False, "is_continuous": False,
+        "use_q_anyway": False, "use_inter": True, "no_corr": False, "no_proj": False,
+        "use_masked_flow": False, "use_deformed_conv": False, "use_tradeoff": False,
+        "skip_rgb": False, "skip_tanh": False, "skip_mode": "enc", "keep_first": False,
+        "n_first": 1, "shared_x_split": True, "decode_buckets": (2, 4, 8), "layout_size": None,
+        "same_decoder_layout": False, "serve_fused": False, "weight_decay": 0.0,
+        "use_quant_loss_vid": False, "ada_target": 0.6, "ada_length": 500000,
+        "decoder_only": False, "dtype": "bfloat16",
+    },
+    "gpt": {"emb_mode": "temporal", "is_continuous": False, "n_in": 3, "n_proposals": 1,
+            "embd_pdrop": 0.0, "dtype": "bfloat16"},
+    "state": {"quantize_only": False},
+    "config": {"async_ckpt": False},
+}
+
+
+def _check_dropped(group, key, value):
+    """Raise unless ``group.key`` is a JAX-only field at its default."""
+    defaults = JAX_ONLY_DEFAULTS.get(group, {})
+    if key not in defaults:
+        raise ValueError(f"config field {group}.{key} is not known to the port")
+    value = tuple(value) if isinstance(value, list) else value
+    if value != defaults[key]:
+        raise ValueError(f"config field {group}.{key} = {value!r} cannot be honoured: the port "
+                         f"does not have this option yet (only its default "
+                         f"{defaults[key]!r}); see ROADMAP.md, queue 1")
+
+
 @dataclass(frozen=True)
 class Config:
     name: str = "experiment"
@@ -342,21 +377,30 @@ class Config:
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
-        """The config that :meth:`to_json` wrote (JSON lists back to tuples;
-        fields the port does not have are left out)."""
+        """The config that :meth:`to_json` wrote, or the JAX package's
+        (JSON lists back to tuples). A field the port does not have is
+        dropped when it holds the JAX package's default
+        (:data:`JAX_ONLY_DEFAULTS`); any other value, or a field neither
+        package has, raises: the port cannot honour it."""
         raw = json.loads(text)
 
-        def build(dc_type, d):
+        def build(dc_type, d, group):
             names = {f.name for f in dataclasses.fields(dc_type)}
+            for k, v in d.items():
+                if k not in names:
+                    _check_dropped(group, k, v)
             return dc_type(**{k: tuple(v) if isinstance(v, list) else v
                               for k, v in d.items() if k in names})
 
         groups = {"data": DataConfig, "ae": AutoencoderConfig, "gpt": TransformerConfig,
                   "state": StateConfig, "stft": StftConfig, "extra_data": DataConfig}
-        kw = {name: build(typ, raw[name]) for name, typ in groups.items()
+        kw = {name: build(typ, raw[name], name) for name, typ in groups.items()
               if raw.get(name) is not None}
-        kw.update({f.name: raw[f.name] for f in dataclasses.fields(cls)
-                   if f.name not in groups and f.name in raw})
+        top = {f.name for f in dataclasses.fields(cls)}
+        for k, v in raw.items():
+            if k not in top:
+                _check_dropped("config", k, v)
+        kw.update({k: v for k, v in raw.items() if k in top and k not in groups})
         return cls(**kw)
 
     @classmethod

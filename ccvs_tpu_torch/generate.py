@@ -4,16 +4,20 @@ conditioned, audio-conditioned (STFT), deblurring, class-conditional,
 point-to-point and unconditional modes; beam search and the sliding window
 for clips longer than the transformer's window (in
 :class:`~ccvs_tpu_torch.models.transformer.TokenTransformer`); ``down_size``;
-step-by-step generation, which re-encodes each decoded frame; and generation
-from one image.
+step-by-step generation, which re-encodes each decoded frame; generation
+from one image; and :meth:`VideoGenerator.save_batch`, which writes a
+batch's clips as MJPEG AVIs.
 
 Layouts are not ported yet (``ROADMAP.md``, queue 1).
 """
+
+import os
 
 import numpy as np
 import torch
 
 from ccvs_tpu_torch.ops.resize import resize_frames
+from ccvs_tpu_torch.utils import video_io
 from ccvs_tpu_torch.train.transformer_trainer import blur_video
 
 
@@ -256,6 +260,53 @@ class VideoGenerator:
         enc = self.ae.encode(real_vid[:, :1])
         init = self.state_model.estimate(self.ae.embed_code(enc["code"]))
         return square_trajectory(init, real_vid.shape[1])
+
+    @staticmethod
+    def save_batch(result_path, global_iter, batch_size, real_vid, out, fps=4,
+                   imagenet_norm=False, vid_ids=None, cats=None):
+        """Write a batch's clips as AVIs under ``result_path``: ``real/``,
+        and ``fake/`` and ``rec/`` where ``out`` has them; with states
+        (``out["state"]``, ``out["fake_state"]``) also ``real_state/`` and
+        ``fake_state/``, copies marked with a cross at each frame's state.
+
+        A clip is named ``vid_{id:05d}{_cat}.avi``: ``id`` is ``vid_ids[i]``
+        when given (the dataset's ids, ``--include-id``), else ``batch_size *
+        global_iter + i``; ``_cat`` is ``_{cats[i]}`` when ``cats`` is given.
+        Tensors (any dtype, any device) move once to the host as fp32, so
+        the files are byte for byte the JAX package's for the same values.
+        Layout outputs (``*_layout``) raise until layouts are ported."""
+
+        def _vid_name(i):
+            vid_id = int(vid_ids[i]) if vid_ids is not None else batch_size * global_iter + i
+            suffix = f"_{cats[i]}" if cats is not None else ""
+            return f"vid_{vid_id:05d}{suffix}.avi"
+
+        if any(name in out for name in ("real_layout", "fake_layout", "rec_layout")):
+            raise NotImplementedError("save_batch: layout videos are not ported yet; see "
+                                      "ROADMAP.md, queue 1")
+        names = {"real": video_io.to_host_f32(real_vid)}
+        for name in ("fake", "rec"):
+            if name in out:
+                names[name] = video_io.to_host_f32(out[name])
+        u8s = {}
+        for name, vid in names.items():
+            u8s[name] = u8 = video_io.to_uint8(vid, imagenet_norm=imagenet_norm)
+            for i in range(u8.shape[0]):
+                video_io.write_video(os.path.join(result_path, name, _vid_name(i)), u8[i],
+                                     fps=fps)
+        for name, key in (("real_state", "state"), ("fake_state", "fake_state")):
+            if key in out:
+                u8 = u8s["real" if key == "state" else "fake"]
+                st = video_io.to_host_f32(out[key])
+                h = u8.shape[2]
+                for i in range(u8.shape[0]):
+                    marked = u8[i].copy()
+                    for j in range(marked.shape[0]):
+                        x = min(int(h * st[i, j, 0]), h - 1)
+                        y = min(int(h * st[i, j, 1]), h - 1)
+                        marked[j] = video_io.draw_cross(marked[j], x, y)
+                    video_io.write_video(os.path.join(result_path, name, _vid_name(i)), marked,
+                                         fps=fps)
 
 
 def square_trajectory(init_state, vid_len):

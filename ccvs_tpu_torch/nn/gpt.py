@@ -17,9 +17,11 @@ fp32 master weights under bf16 compute.
 In training mode (``module.train()``) attention-probability and residual
 dropout (``attn_pdrop``, ``resid_pdrop``) and the MLP's residual noise
 (``resid_noise``, scaled by the learnt ``noise_weight``) draw from the
-``torch.Generator`` given to :meth:`GPT.forward`; with ``remat`` each block is
-recomputed in the backward pass (``torch.utils.checkpoint``), its random
-draws replayed from the generator's state.
+``torch.Generator`` given to :meth:`GPT.forward`. With ``remat``, whenever
+gradients are being recorded (the training step runs the GPT in eval mode,
+without dropout, as the JAX package's does), each block is recomputed in the
+backward pass (``torch.utils.checkpoint``), its random draws replayed from
+the generator's state.
 
 The KV cache is ``(k, v)`` of ``(n_layer, B, nh, L, hd)`` tensors, written in
 place (the JAX package returns updated copies). The single-token attention
@@ -224,7 +226,7 @@ class GPTCore(nn.Module):
 
     def forward(self, emb, cache=None, index=0, generator=None):
         x = emb
-        remat = self.cfg.remat and self.training and torch.is_grad_enabled() and cache is None
+        remat = self.cfg.remat and torch.is_grad_enabled() and cache is None
         for layer, block in enumerate(self.blocks):
             if remat:
                 x = _remat_block(block, x, generator)

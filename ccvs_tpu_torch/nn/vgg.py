@@ -108,8 +108,10 @@ def detect_arch(keys):
 
 
 def load_vgg_npz(path, device=None):
-    """A :class:`VGG` of the weights in an npz with torchvision's keys
-    (either architecture)."""
+    """``(vgg, lins)``: a :class:`VGG` of the weights in an npz with
+    torchvision's keys (either architecture), and the five LPIPS channel
+    weights ``lin0`` ... ``lin4`` (flat fp32 tensors) of the JAX package's
+    ``export_lpips`` format, or None when the npz has none."""
     with np.load(path) as raw:
         vgg = VGG(detect_arch(raw.files), device=device)
         with torch.no_grad():
@@ -117,7 +119,11 @@ def load_vgg_npz(path, device=None):
                 i = name[len("conv"):]
                 m.weight.copy_(torch.from_numpy(raw[f"features.{i}.weight"]))
                 m.bias.copy_(torch.from_numpy(raw[f"features.{i}.bias"]))
-    return vgg
+        lins = None
+        if "lin0" in raw.files:
+            lins = [torch.from_numpy(np.asarray(raw[f"lin{k}"], np.float32).reshape(-1)).to(
+                vgg.conv0.weight.device) for k in range(5)]
+    return vgg, lins
 
 
 def make_vgg(npz=None, seed=0, device=None, context="the perceptual loss"):
@@ -127,7 +133,7 @@ def make_vgg(npz=None, seed=0, device=None, context="the perceptual loss"):
     if npz:
         if not os.path.exists(npz):
             raise FileNotFoundError(f"vgg npz {npz!r} does not exist")
-        return load_vgg_npz(npz, device=device)
+        return load_vgg_npz(npz, device=device)[0]
     print(f"WARNING: no VGG weights given -- {context} uses fixed random filters (seed "
           f"{seed}), not the reference's pretrained VGG", file=sys.stderr)
     vgg = VGG(device=device)

@@ -27,6 +27,7 @@ from ccvs_tpu_torch.nn.discriminators import (FeatureDiscriminator, ImageDiscrim
 from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.vgg import make_vgg
 from ccvs_tpu_torch.train.ae_losses import AELosses
+from ccvs_tpu_torch.train.states import iteration_generator
 from ccvs_tpu_torch.train.steps import make_ae_steps
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from ccvs_tpu_torch.utils.logging import Logger
@@ -187,7 +188,6 @@ class FrameAutoencoderTrainer:
             eval_ds = create_dataset(eval_cfg, phase="valid", load_vid=False)
             eval_batch = torch.from_numpy(np.stack(
                 [eval_ds[i]["img"] for i in range(min(16, len(eval_ds)))])).to(self.device)
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
         t0 = time.time()
         self.preempted = False
@@ -198,7 +198,8 @@ class FrameAutoencoderTrainer:
                 vid_batch = None
                 if vid_iter is not None and it % acfg.vid_step_every == 0:
                     vid_batch = to_device(next(vid_iter), self.device)
-                state, gm, dm, _ = self.iteration(state, it, img_batch, vid_batch, generator)
+                state, gm, dm, _ = self.iteration(state, it, img_batch, vid_batch,
+                                                  iteration_generator(cfg.seed, it, self.device))
                 if serialize_steps and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 logger.log_scalars({**gm, **dm}, it, prefix="qvid_generator/")

@@ -26,8 +26,18 @@ import copy
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
+
+
+def iteration_generator(seed, it, device=None):
+    """The ``torch.Generator`` (on ``device``) of iteration ``it`` of a run
+    seeded ``seed``, derived from the pair alone (the counterpart of the JAX
+    package's ``fold_in(key, it)``): a run resumed at ``it`` draws what an
+    uninterrupted run draws there."""
+    s = int(np.random.SeedSequence([seed, it]).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(s)
 
 
 def linear_schedule(init_value, end_value, transition_steps):

@@ -24,10 +24,10 @@ def global_norm(grads):
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
-def _mb_loss(transformer, mb, generator):
+def _mb_loss(transformer, mb):
     return transformer.loss(mb["code"], state_code=mb.get("state_code"),
                             cond_code=mb.get("cond_code"), delta=mb.get("delta"),
-                            lbl=mb.get("vid_lbl"), generator=generator)
+                            lbl=mb.get("vid_lbl"))
 
 
 def _update(params, loss, opt):
@@ -105,13 +105,17 @@ def make_transformer_step(transformer, cfg, n_iter, state_shardings=None):
     (``helpers/transformer_trainer.py:56-87``).
 
     ``init_state()`` builds the AdamW optimizer (``train/states.py``) over
-    ``transformer``'s GPT. ``step(state, batch, generator=None)`` runs one
-    update in training mode (``generator`` feeds dropout and residual noise)
-    and returns ``(state, metrics)``: ``nll`` (and ``state_nll``) and
+    ``transformer``'s GPT. ``step(state, batch)`` runs one update and
+    returns ``(state, metrics)``: ``nll`` (and ``state_nll``) and
     ``gnorm``, the global gradient norm before the update, as device
     tensors. With ``cfg.grad_accum = n`` the batch is cut into ``n`` equal
     microbatches whose gradients are summed and then divided by ``n``: the
-    full batch's update, with one microbatch's activations."""
+    full batch's update, with one microbatch's activations.
+
+    The GPT runs in eval mode, without ``attn_pdrop``, ``resid_pdrop`` and
+    ``resid_noise``, as the JAX package's step runs it (``deterministic``,
+    ``ccvs_tpu/train/steps.py``); the reference's minGPT applies them. The
+    module keeps its training mode for callers that want them."""
     if state_shardings is not None or cfg.fsdp or cfg.seq_parallel:
         raise NotImplementedError("sharded transformer steps (state_shardings, fsdp, "
                                   "seq_parallel) come with the parallel layer")
@@ -121,14 +125,14 @@ def make_transformer_step(transformer, cfg, n_iter, state_shardings=None):
         return SimpleTrainState(step=0, params=transformer,
                                 opt=make_transformer_optimizer(cfg, n_iter, transformer.model))
 
-    def step(state, batch, generator=None):
+    def step(state, batch):
         model = state.params
-        model.train()
+        model.eval()
         params = list(model.parameters())
         for p in params:
             p.grad = None
         if accum == 1:
-            loss, metrics = _mb_loss(model, batch, generator)
+            loss, metrics = _mb_loss(model, batch)
             loss.backward()
         else:
             b = batch["code"].shape[0]
@@ -138,7 +142,7 @@ def make_transformer_step(transformer, cfg, n_iter, state_shardings=None):
             parts = []
             for i in range(accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                loss, m = _mb_loss(model, mb, generator)
+                loss, m = _mb_loss(model, mb)
                 loss.backward()
                 parts.append({k: v.detach() for k, v in m.items()})
             for p in params:

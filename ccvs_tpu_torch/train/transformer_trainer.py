@@ -152,14 +152,13 @@ class TransformerTrainer:
         loader = PrefetchLoader(ds, cfg.data.batch_size_vid, num_workers=cfg.data.num_workers,
                                 seed=cfg.seed)
         it_data = iter(cycle_loader(loader))
-        generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
         t0 = time.time()
         self.preempted = False
         with PreemptionGuard() as guard:
             for it in range(start, n_iter):
                 tokens = self.encode_batch(to_device(next(it_data), self.device))
-                tstate, metrics = self.step(tstate, tokens, generator)
+                tstate, metrics = self.step(tstate, tokens)
                 if serialize_steps and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 logger.log_scalars(metrics, it, prefix="transformer/")

@@ -8,7 +8,14 @@ read with numpy alone. Translation:
 - flax ``LayerNorm`` ``scale`` and ``Embed`` ``embedding`` -> ``weight``;
 - the GPT blocks, stacked by ``nn.scan`` under ``core/blocks/block`` with a
   leading layer axis, -> ``core.blocks.<layer>``;
-- conv weights are already in torch layout and load as they are;
+- flax ``Conv`` ``kernel (*spatial, in, out)`` -> ``weight (out, in,
+  *spatial)`` (the I3D and the fallback FVD embedder); the autoencoder's and
+  the discriminators' conv weights are already in torch layout and load as
+  they are;
+- flax ``BatchNorm``: ``scale`` / ``bias`` -> ``weight`` / ``bias``, its
+  ``batch_stats`` ``mean`` / ``var`` -> the buffers ``running_mean`` /
+  ``running_var``; a leading ``params/`` or ``batch_stats/`` (the
+  collections of a flax ``variables`` dict) is dropped;
 - raw parameters (``s_emb``, ``state_s_emb``, ``start_tok_emb``, a
   codebook's ``embedding``) keep their names, so the state model's tree
   (``estimator/...``, ``quantizer/embedding``) loads into ``StateModel`` and
@@ -21,8 +28,8 @@ One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
 (``di/...``, ``dv/...``, ``df/...`` into an ``nn.ModuleDict`` of them) and
 VGG (``conv{i}/weight``, ``conv{i}/bias``) keep the JAX names as they are.
 
-Every parameter of the module must be filled and every key must land, or
-loading raises.
+Every parameter and persistent buffer of the module must be filled and
+every key must land, or loading raises.
 
 :func:`export_params` is the reverse: a module's parameters as that flat
 dict, so that parameters the port trains load into the JAX package
@@ -36,12 +43,16 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "mean": "running_mean",
+         "var": "running_var"}
+_COLLECTIONS = ("params", "batch_stats")
 
 
 def _translate(key, value, targets):
     """Yield ``(parameter name, array)`` for one flat key."""
     parts = key.split("/")
+    if parts[0] in _COLLECTIONS:
+        parts = parts[1:]
     for i in range(len(parts) - 1):
         if parts[i:i + 2] == ["blocks", "block"]:
             for layer in range(value.shape[0]):
@@ -51,15 +62,18 @@ def _translate(key, value, targets):
     name = ".".join(parts)
     if name not in targets and parts[-1] in _LEAF:
         name = ".".join(parts[:-1] + [_LEAF[parts[-1]]])
-        if parts[-1] == "kernel":
+        if parts[-1] == "kernel" and value.ndim > 2:  # flax Conv (*spatial, in, out)
+            value = np.transpose(value, (value.ndim - 1, value.ndim - 2, *range(value.ndim - 2)))
+        elif parts[-1] == "kernel":
             value = np.swapaxes(value, -1, -2)
     yield name, value
 
 
 def load_params(module, flat, prefix=""):
     """Copy the arrays of ``flat`` (keys under ``prefix/`` when given) into
-    ``module``'s parameters, in place. Returns ``module``."""
-    targets = dict(module.named_parameters())
+    ``module``'s parameters and persistent buffers, in place. Returns
+    ``module``."""
+    targets = module.state_dict(keep_vars=True)
     filled = set()
     pre = prefix + "/" if prefix else ""
     for key, value in flat.items():
@@ -67,7 +81,7 @@ def load_params(module, flat, prefix=""):
             continue
         for name, arr in _translate(key[len(pre):], np.asarray(value), targets):
             if name not in targets:
-                raise KeyError(f"{key}: the module has no parameter {name!r}")
+                raise KeyError(f"{key}: the module has no parameter or buffer {name!r}")
             p = targets[name]
             if tuple(p.shape) != arr.shape:
                 raise ValueError(f"{key} -> {name}: shape {arr.shape}, expected {tuple(p.shape)}")

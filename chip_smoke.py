@@ -90,11 +90,30 @@ Phases, each printing its wall time:
    feeding 6 iterations, peak memory, a profile of an iteration and of R1;
    (c) ``FrameAutoencoderTrainer.run`` with its eval, resume and npz mirror
    (the JAX ``ae_gen`` keys), ``StftAutoencoderTrainer.run`` and resume,
-   ``cli.py train-ae`` then ``train-transformer --ae-ckpt``.
+   ``cli.py train-ae`` then ``train-transformer --ae-ckpt``;
+12. generate and score: (a) a small fp32 configuration through ``cli.py
+   generate`` on the card and on the CPU, greedily (the same files, the
+   real clips byte for byte, the decoded frames within a few uint8 levels),
+   the eval functions on the card against the CPU (I3D and the fallback
+   embedder within 1e-4 of the largest entry, PSNR and SSIM within 1e-9,
+   LPIPS within 1e-5 relative), ``eval-all`` printing the JAX package's
+   keys, and a planted fault (symmetric padding in the I3D stem) caught;
+   (b) full-width BAIR-256 as ``bairhd_config()`` has it: ``cli.py generate
+   --n-batches 1`` on a 16-clip valid set at 256 px (batch 16, with
+   reconstructions; K1 exactly 3 launches, K2 24 a decode step), the
+   rollout and the writing of 48 AVIs timed apart, ``eval-all --rec`` by
+   pass, the port's I3D at 224 px in clips a second with its FVD, LPIPS in
+   frame pairs a second, SSIM's and PSNR's time, peak memory and the host's
+   stages (JPEG, scipy).
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without a result line. Without a CUDA device the script fails at once.
+
+``python3 chip_smoke.py trace-kink [SEED]`` runs phase 11 (a) at data seed
+SEED (default 6) and traces its worst video G step's worst gradient entry to
+the kinks where the card and the CPU decide differently (:func:`trace_kink`),
+and prints the result as one JSON line.
 """
 
 import json
@@ -103,6 +122,7 @@ import os
 import random
 import statistics
 import subprocess
+import sys
 import time
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
@@ -290,19 +310,23 @@ def phase_kernels(records):
     # is the BAIR, p2p and int8 rollouts' cache, 1152 the state and
     # unconditional ones' (one full 16 KB tile and a ragged one of 16 rows a
     # CTA), 1280 the Kinetics-600 window's (a full tile and 32 rows)
-    b, nh, hd = 2, 16, 64
+    # B 16 at L 1024 is the rollout of ``cli.py generate`` (phase 12): a valid
+    # batch of 16 clips
+    nh, hd = 16, 64
     pos_t = torch.zeros(1, dtype=torch.int32, device="cuda")
     worst, shapes = 0.0, []
-    for length, checked, timed in ((1024, (0, 63, 64, 511, 1023), (63, 511, 1023)),
-                                   (1152, (0, 1023, 1055, 1151), (1151,)),
-                                   (1280, (0, 1151, 1279), (1279,))):
+    for b, length, checked, timed in ((2, 1024, (0, 63, 64, 511, 1023), (63, 511, 1023)),
+                                      (2, 1152, (0, 1023, 1055, 1151), (1151,)),
+                                      (2, 1280, (0, 1151, 1279), (1279,)),
+                                      (16, 1024, (0, 511, 1023), (1023,))):
         q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
         kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
         vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
         for pos in checked:
             pos_t.fill_(pos)
             out = flash_decode_attention(q, kc, vc, pos_t)
-            worst = max(worst, check_flash_decode(out, q, kc, vc, pos, f"L={length} pos={pos}"))
+            worst = max(worst, check_flash_decode(out, q, kc, vc, pos,
+                                                  f"B={b} L={length} pos={pos}"))
         # one launch captured in a CUDA graph serves every position
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -311,7 +335,8 @@ def phase_kernels(records):
             pos_t.fill_(pos)
             graph.replay()
             worst = max(worst, check_flash_decode(out, q, kc, vc, pos,
-                                                  f"L={length} CUDA-graph replay pos={pos}"))
+                                                  f"B={b} L={length} CUDA-graph replay "
+                                                  f"pos={pos}"))
         for pos in timed:
             pos_t.fill_(pos)
             ms = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t))
@@ -321,12 +346,13 @@ def phase_kernels(records):
             live = pos + 1
             bnd, by = bound_ms(2 * (2 * b * nh * hd + 2 * b * nh * live * hd),
                                4 * b * nh * live * hd, PEAK_FP32_PER_S)
-            log(f"K2 flash_decode L={length} pos={pos} bf16: kernel {ms:.4f} ms, plain "
+            log(f"K2 flash_decode B={b} L={length} pos={pos} bf16: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
                 f"{100 * bnd / ms:.1f}% of it)")
-            shapes.append({"length": length, "pos": pos, "ms": ms, "plain_ms": plain,
-                           "library_ms": lib, "bound_ms": bnd, "bound_by": by})
-        if length == 1024:
+            shapes.append({"batch": b, "length": length, "pos": pos, "ms": ms,
+                           "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                           "bound_by": by})
+        if length == 1024 and b == 2:
             # what the timer shows for any launch, and K2 with its inputs in L2
             floor = time_ms(lambda: pos_t.fill_(pos))
             warm = time_ms(lambda: flash_decode_attention(q, kc, vc, pos_t), flush_l2=False)
@@ -1774,7 +1800,7 @@ def _ae_step_passes(res):
             and res["ema"][0] <= 0)
 
 
-def phase_ae_reference():
+def phase_ae_reference(on_step=None):
     """(a) The small fp32 configuration: three iterations of the six steps
     (G, D, R1 for images and for video; R1 every 2) free-running on the
     card; each step also run on the CPU from the card's state before it
@@ -1787,7 +1813,10 @@ def phase_ae_reference():
     step held to the plain search's by :func:`check_vq`. Two faults are
     then planted in the last step and shown to fail the check: the sign of
     the update of the parameter with the smallest gradient flipped, and
-    the sign of its gradient flipped (with the update that follows)."""
+    the sign of its gradient flipped (with the update that follows).
+    ``on_step(when, it, kind, mode, state_or_step, batch_or_result)``, when
+    given, sees each step "before" it runs (the card's state and the CPU
+    batch) and "after" (the step's record and its check)."""
     import copy
 
     import torch
@@ -1828,6 +1857,8 @@ def phase_ae_reference():
                     if kind == "g" else None)
             cfake = None if kind == "g" else {k: None if v is None else v.cpu()
                                               for k, v in fake[mode].items()}
+            if on_step is not None:
+                on_step("before", it, kind, mode, gstate, batch["cpu"][mode])
             gstate, gm, gfake, gmod, gopt = _ae_step(gpu, gstate, kind, mode,
                                                      batch["cuda"][mode], fake.get(mode))
             cstate, cm, _, cmod, copt = _ae_step(cpu, cstate, kind, mode, batch["cpu"][mode],
@@ -1844,6 +1875,8 @@ def phase_ae_reference():
             if ema0 is not None:
                 step["ema"] = {n: (ema0[n], e) for n, e in gstate.ema.named_parameters()}
             res = _ae_step_check(step)
+            if on_step is not None:
+                on_step("after", it, kind, mode, step, res)
             n_steps += 1
             keys |= set(cm)
             if "g_loss" in cm:
@@ -2151,6 +2184,571 @@ def phase_ae_train(records, card):
     phase_ae_runs()
 
 
+# ---------------- phase 12: generate and score ----------------
+
+
+def write_bair_set(root, n_clips, n_frames, size, seed=0):
+    """A BAIR-layout valid split of moving squares,
+    ``original_frames_256/test/<clip>/<frame>.png``, ``n_clips`` clips of
+    ``n_frames`` frames at ``size`` px."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    side = max(2, size // 4)
+    for c in range(n_clips):
+        d = os.path.join(root, "original_frames_256", "test", f"{c:04d}")
+        os.makedirs(d)
+        x0, y0 = rng.randint(0, size - side, 2)
+        vx, vy = rng.randint(-(size // 32) - 1, size // 32 + 2, 2)
+        color = rng.randint(64, 255, 3)
+        for t in range(n_frames):
+            f = np.full((size, size, 3), 32, np.uint8)
+            x, y = (int(np.clip(p + v * t, 0, size - side)) for p, v in ((x0, vx), (y0, vy)))
+            f[y:y + side, x:x + side] = color
+            Image.fromarray(f).save(os.path.join(d, f"{t:02d}.png"))
+
+
+def seeded_checkpoints(root, cfg, dtype, device):
+    """Run directories of a seeded autoencoder (``qvid``: ``gen`` and
+    ``ema``, with the run's ``config.json``) and GPT (``transformer``), as
+    the trainers write them, through the port's ``CheckpointManager``."""
+    from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+    from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
+
+    ae_dir, gpt_dir = os.path.join(root, "ae"), os.path.join(root, "gpt")
+    sd = FrameAutoencoder(cfg.ae, dtype=dtype, device=device).init(seed=0).state_dict()
+    CheckpointManager(ae_dir).save("qvid", 1, {"gen": sd, "ema": sd}, latest=True)
+    with open(os.path.join(ae_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    tr = TokenTransformer(cfg.gpt, dtype=dtype, device=device).init(seed=1)
+    CheckpointManager(gpt_dir).save("transformer", 1, {"params": tr.state_dict()}, latest=True)
+    return ae_dir, gpt_dir
+
+
+def small_generate_config(root):
+    """Phase 12 (a)'s configuration: phase 11's autoencoder widths at 16 px,
+    a 2-layer GPT of head size 64 (K2's), greedy; clips of 3 frames from a
+    BAIR-layout set, batches of 4."""
+    from ccvs_tpu_torch.config import AutoencoderConfig, Config, DataConfig, TransformerConfig
+
+    ae = AutoencoderConfig(necf=8, necf_mult=(1, 2), ndcf=8, ndcf_mult=(1, 2), z_size=16,
+                           z_num=32, z_shape=(8, 8), max_dim=16, inter_p=0.5, skip_memory=2,
+                           skip_context=(1, 2))
+    gpt = TransformerConfig(z_num=32, z_len=192, z_chunk=64, num_blocks=3, cond_len=64,
+                            n_layer=2, n_head=2, n_embd=128, z_shape=(8, 8), top_k=1)
+    data = DataConfig(dataset="bairhd", dataroot=os.path.join(root, "bair"), max_dim=16,
+                      true_dim=16, vid_len=3, batch_size_vid=4, num_workers=2)
+    return Config(name="small", data=data, ae=ae, gpt=gpt, save_path=root)
+
+
+def _rel_files(root):
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, _, names in os.walk(root) for n in names)
+
+
+# eval-all's JSON: the JAX package's keys (tests/test_torch_generate_cli.py
+# holds them to its fvd_from_videos and video_metrics)
+EVAL_ALL_KEYS = {
+    "fvd": {"fvd_uncalibrated", "fallback_embedder", "fvd_uncalibrated_mean",
+            "fvd_uncalibrated_std"},
+    "metrics": {"psnr", "ssim", "lpips_uncalibrated", "lpips_fallback_weights"},
+}
+JPEG_MAX_LEVELS, JPEG_MEAN_LEVELS = 12, 0.5
+
+
+def check_eval_all(out, passes, chunk_note=False):
+    fvd_keys = set(EVAL_ALL_KEYS["fvd"])
+    if chunk_note:
+        fvd_keys = {"fvd_uncalibrated", "fallback_embedder", "fvd_uncalibrated_chunk_note"}
+    want = {f"{kind}_{p}_vs_real" for p in passes for kind in ("fvd", "metrics")}
+    if set(out) != want:
+        raise AssertionError(f"eval-all printed {sorted(out)}, expected {sorted(want)}")
+    for p in passes:
+        for kind, keys in (("fvd", fvd_keys), ("metrics", EVAL_ALL_KEYS["metrics"])):
+            got = out[f"{kind}_{p}_vs_real"]
+            if set(got) != keys:
+                raise AssertionError(f"eval-all {kind}_{p}: keys {sorted(got)}, expected "
+                                     f"{sorted(keys)}")
+            for k, v in got.items():
+                if isinstance(v, float) and not math.isfinite(v):
+                    raise AssertionError(f"eval-all {kind}_{p}: {k} = {v}")
+
+
+def phase_generate_reference():
+    """(a) The small fp32 configuration through ``cli.py generate`` on the
+    card and on the CPU, greedily: the same files, the real clips byte for
+    byte, the decoded fake and reconstructed frames within
+    ``JPEG_MAX_LEVELS`` (any pixel) and ``JPEG_MEAN_LEVELS`` (a frame's mean)
+    uint8 levels: the card's and the CPU's fp32 videos differ by about 1e-5,
+    which flips the truncating uint8 conversion by one level where a value
+    lies that near a level, and one level moved in a pixel can move the
+    rounding of a quantised JPEG coefficient of its 8x8 block (quality 92's
+    steps are 1-6 levels). Then the eval functions on the card against the
+    CPU over the card's files: I3D (seeded, made on the CPU and copied) and
+    the fallback embeddings within 1e-4 of the largest entry, PSNR and SSIM
+    within 1e-9, LPIPS within 1e-5 relative (a seeded VGG19 through an npz);
+    ``eval-all`` on the card printing the JAX package's keys; and a planted
+    fault, the I3D stem padded symmetrically (3, 3) instead of TF's (2, 3),
+    shown to fail the embedding check."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch import cli
+    from ccvs_tpu_torch.device import resolve_device
+    from ccvs_tpu_torch.eval import fvd, metrics
+    from ccvs_tpu_torch.nn.vgg import make_vgg
+    from ccvs_tpu_torch.utils.video_io import read_video
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = small_generate_config(root)
+        write_bair_set(cfg.data.dataroot, 8, 3, 16)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        ae_dir, gpt_dir = seeded_checkpoints(root, cfg, torch.float32, "cpu")
+        flags = ["--load-config", cfg_path, "--ae-ckpt", ae_dir, "--gpt-ckpt", gpt_dir,
+                 "--n-batches", "2", "--dtype", "float32"]
+        res = {dev: cli.main(["generate", *flags, "--device", dev, "--name", dev])
+               for dev in ("cuda", "cpu")}
+        files = {dev: _rel_files(r["path"]) for dev, r in res.items()}
+        if files["cuda"] != files["cpu"] or len(files["cuda"]) != 24:
+            raise AssertionError(f"generate small: files differ: {files}")
+        worst = {"max": 0, "mean": 0.0}
+        for rel in files["cuda"]:
+            a, b = (read_video(os.path.join(res[dev]["path"], rel)).astype(np.int16)
+                    for dev in ("cuda", "cpu"))
+            d = np.abs(a - b)
+            if rel.startswith("real") and d.any():
+                raise AssertionError(f"generate small: {rel} differs on the card")
+            worst["max"] = max(worst["max"], int(d.max()))
+            worst["mean"] = max(worst["mean"], float(d.reshape(len(d), -1).mean(1).max()))
+        if worst["max"] > JPEG_MAX_LEVELS or worst["mean"] > JPEG_MEAN_LEVELS:
+            raise AssertionError(f"generate small: decoded frames differ by {worst} levels")
+        log(f"generate small: card and CPU wrote the same {len(files['cuda'])} files, the real "
+            f"clips byte for byte, fake and rec frames within {worst['max']} levels (a frame's "
+            f"mean within {worst['mean']:.4f}; tolerance {JPEG_MAX_LEVELS} / "
+            f"{JPEG_MEAN_LEVELS})")
+
+        dirs = {k: os.path.join(res["cuda"]["path"], k) for k in ("real", "fake", "rec")}
+        fake = cli._load_dir(dirs["fake"])
+        card = resolve_device("cuda")
+        i3d_cpu = fvd.make_i3d_embedder(seed=0, device="cpu")
+        errs, want = {}, {}
+        for name, cpu_e in (("i3d", i3d_cpu), ("fallback", fvd.make_fallback_embedder(
+                device="cpu"))):
+            want[name] = fvd.embeddings_from_videos(fake, cpu_e)
+            got = fvd.embeddings_from_videos(fake, fvd.Embedder(copy.deepcopy(cpu_e.net), card))
+            errs[name] = float(np.abs(got - want[name]).max() / np.abs(want[name]).max())
+        stem = fvd.Embedder(copy.deepcopy(i3d_cpu.net), card)
+        u = stem.net.Conv3d_1a
+        u.forward = lambda x: torch.relu(u.bn(F.conv3d(x, u.conv3d.weight, None, u.stride,
+                                                       padding=3)))
+        planted = float(np.abs(fvd.embeddings_from_videos(fake, stem) - want["i3d"]).max()
+                        / np.abs(want["i3d"]).max())
+        vgg = make_vgg(None, seed=0, device="cpu", context="phase 12's LPIPS")
+        vgg_npz = os.path.join(root, "vgg19.npz")
+        np.savez(vgg_npz, **{f"features.{n[4:]}.{k}": getattr(m, k).detach().numpy()
+                             for n, m in vgg.named_children() for k in ("weight", "bias")})
+        real_u, fake_u = cli._load_dir(dirs["real"], unit=True), cli._load_dir(dirs["fake"],
+                                                                                unit=True)
+        m = {dev: metrics.video_metrics(real_u, fake_u, vgg_npz=vgg_npz, device=dev)
+             for dev in ("cuda", "cpu")}
+        errs["psnr"] = abs(m["cuda"]["psnr"] - m["cpu"]["psnr"])
+        errs["ssim"] = abs(m["cuda"]["ssim"] - m["cpu"]["ssim"])
+        errs["lpips"] = abs(m["cuda"]["lpips_uncalibrated"] / m["cpu"]["lpips_uncalibrated"] - 1)
+        bounds = {"i3d": 1e-4, "fallback": 1e-4, "psnr": 1e-9, "ssim": 1e-9, "lpips": 1e-5}
+        bad = {k: v for k, v in errs.items() if not v <= bounds[k]}
+        if bad:
+            raise AssertionError(f"eval small: the card differs from the CPU: {bad} (bounds "
+                                 f"{bounds})")
+        if not planted > bounds["i3d"]:
+            raise AssertionError(f"eval small: the planted fault (symmetric stem padding) "
+                                 f"passed: {planted:.3g} of the largest entry")
+        out = cli.main(["eval-all", "--real", dirs["real"], "--fake", dirs["fake"], "--rec",
+                        dirs["rec"], "--chunk", "4", "--device", "cuda"])
+        check_eval_all(out, ("fake", "rec"))
+        log(f"eval small, card against CPU: I3D (1024-d) within {errs['i3d']:.3g} and the "
+            f"fallback within {errs['fallback']:.3g} of the largest entry, PSNR "
+            f"{m['cuda']['psnr']:.6f} within {errs['psnr']:.3g}, SSIM {m['cuda']['ssim']:.6f} "
+            f"within {errs['ssim']:.3g}, LPIPS within {errs['lpips']:.3g} relative; "
+            f"the planted fault (symmetric stem padding) off by {planted:.3g} of the largest "
+            f"entry: caught; eval-all printed the JAX package's keys")
+
+
+def phase_generate_bairhd(records, card):
+    """(b) Full-width BAIR-256, ``bairhd_config()`` as it is: seeded bf16
+    checkpoints and a 16-clip valid set of 16 frames at 256 px; ``cli.py
+    generate --n-batches 1`` (one batch of 16, with reconstructions) with
+    K1's and K2's launches counted around it, the rollout and the writing
+    of its 48 AVIs timed apart; ``eval-all --rec`` by pass (the fallback
+    embedder, seeded VGG19); the port's I3D at 224 px on the 16 real and 16
+    fake clips, with its FVD; LPIPS in frames a second, SSIM's and PSNR's
+    time, the peak memory; the host's stages: JPEG decoding, scipy."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from ccvs_tpu_torch import cli
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.eval import fvd, metrics
+    from ccvs_tpu_torch.ops.attention import flash_decode_attention
+    from ccvs_tpu_torch.ops.int8_linear import int8_linear
+    from ccvs_tpu_torch.ops.vq import vq_indices
+
+    cfg = bairhd_config()
+    b, t = cfg.data.batch_size_vid * cfg.data.batch_size_valid_mult, cfg.data.vid_len
+    size = cfg.ae.tokens_per_frame
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        bair = os.path.join(root, "bair")
+        write_bair_set(bair, b, t, 256)
+        ae_dir, gpt_dir = seeded_checkpoints(root, cfg, torch.bfloat16, "cuda")
+        torch.cuda.empty_cache()
+        log(f"generate bairhd set-up: {b} clips of {t} PNG frames at 256 px and seeded bf16 "
+            f"checkpoints in {time.perf_counter() - t0:.1f} s")
+        wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
+                    "int8_linear": int8_linear}
+        # K1: the clips' encode and the context frame's re-encode in the fake
+        # and the rec decode; K2: a launch a layer in each decode step
+        want = {"vq_argmin": 3, "flash_decode": cfg.gpt.n_layer * (t - 1) * size,
+                "int8_linear": 0}
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = cli.main(["generate", "--preset", "bairhd", "--dataroot", bair, "--save-path",
+                        root, "--ae-ckpt", ae_dir, "--gpt-ckpt", gpt_dir, "--n-batches", "1"])
+        wall = time.perf_counter() - t0
+        launches = {key: fn.launches for key, fn in wrappers.items()}
+        if launches != want:
+            raise AssertionError(f"generate bairhd: launches {launches}, expected {want}")
+        name = f"bairhd cli generate (batch {b}, rec)"
+        for key, n in launches.items():
+            records[key]["launches_by_rollout"][name] = n
+        files = _rel_files(res["path"])
+        if len(files) != 3 * b:
+            raise AssertionError(f"generate bairhd: {len(files)} files, expected {3 * b}")
+        gen_s, write_s = res["seconds"]["generate"][0], res["seconds"]["write"][0]
+        frames = b * (t - 1)
+        log(f"generate bairhd (cli.py, batch {b}, {t} frames, 1 context, bf16): rollout with "
+            f"reconstructions {gen_s:.3f} s = {frames / gen_s:.4f} generated frames/s "
+            f"({1e3 * gen_s / ((t - 1) * size):.2f} ms a decode step all in), writing "
+            f"{len(files)} AVIs ({len(files) * t} JPEG frames, host) {write_s:.3f} s, command "
+            f"{wall:.3f} s with loading; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, on "
+            f"{card}")
+
+        dirs = {k: os.path.join(res["path"], k) for k in ("real", "fake", "rec")}
+        torch.cuda.reset_peak_memory_stats()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            out = cli.main(["eval-all", "--real", dirs["real"], "--fake", dirs["fake"], "--rec",
+                            dirs["rec"], "--chunk", "16"])
+        wall = time.perf_counter() - t0
+        check_eval_all(out, ("fake", "rec"), chunk_note=False)
+        passes = json.loads(next(line for line in err.getvalue().splitlines()
+                                 if line.startswith("eval-all seconds: "))[18:])
+        log(f"eval-all bairhd ({b} clips a pass, fallback embedder, seeded VGG19): "
+            f"{wall:.3f} s, by pass (s) " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items())
+            + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"fake: {out['fvd_fake_vs_real']['fvd_uncalibrated']:.4f} FVD (uncalibrated), "
+            f"PSNR {out['metrics_fake_vs_real']['psnr']:.4f}, SSIM "
+            f"{out['metrics_fake_vs_real']['ssim']:.4f}; rec: PSNR "
+            f"{out['metrics_rec_vs_real']['psnr']:.4f}")
+
+        t0 = time.perf_counter()
+        real, fake = cli._load_dir(dirs["real"]), cli._load_dir(dirs["fake"])
+        decode_s = time.perf_counter() - t0
+        i3d = fvd.make_i3d_embedder(seed=0)
+        fvd.embeddings_from_videos(real[:2], i3d)  # cuDNN's first-call choices
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        emb = [fvd.embeddings_from_videos(v, i3d) for v in (real, fake)]
+        i3d_s = _synced_since(t0)
+        t0 = time.perf_counter()
+        fvd_i3d = fvd.frechet_distance(*emb)
+        scipy_s = time.perf_counter() - t0
+        log(f"I3D bairhd (seeded filters, 224 px, batches of 16): {2 * b} clips of {t} frames "
+            f"in {i3d_s:.3f} s = {2 * b / i3d_s:.2f} clips/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; FVD (uncalibrated) "
+            f"{fvd_i3d:.4f}, the Frechet distance of 1024-d embeddings on the host (numpy, "
+            f"scipy sqrtm) {scipy_s:.3f} s; decoding the {2 * b * t} JPEG frames of two "
+            f"directories on the host {decode_s:.3f} s")
+
+        lp = metrics.LPIPS(device="cuda")
+        r, f_ = (torch.from_numpy(x).to(lp.device) for x in (real, fake))
+        lp.distance(r[0], f_[0])
+        t0 = time.perf_counter()
+        for i in range(b):
+            lp.distance(r[i], f_[i])
+        lpips_s = _synced_since(t0)
+        ru, fu = ((x.double() + 1) / 2 for x in (r, f_))
+        metrics.ssim_frames(ru[0], fu[0])
+        t0 = time.perf_counter()
+        for i in range(b):
+            metrics.ssim_frames(ru[i], fu[i])
+        ssim_s = _synced_since(t0)
+        t0 = time.perf_counter()
+        for i in range(b):
+            metrics.psnr_frames(ru[i], fu[i])
+        psnr_s = _synced_since(t0)
+        log(f"LPIPS bairhd (VGG19, 256 px, a clip of {t} frames a call): {b * t} frame pairs "
+            f"in {lpips_s:.3f} s = {b * t / lpips_s:.1f} pairs/s; SSIM (fp64, 7x7) "
+            f"{ssim_s:.3f} s, PSNR {psnr_s:.3f} s for the same frames, on the card")
+        del r, f_, ru, fu
+        torch.cuda.empty_cache()
+
+
+def phase_generate(records, card):
+    phase_generate_reference()
+    phase_generate_bairhd(records, card)
+
+
+# ---------------- tracing a gradient difference to its kinks ----------------
+
+
+class KinkTrace:
+    """Records, in call order, the discrete decisions of a forward pass of
+    the autoencoder's losses: the sign of each leaky ReLU's and ReLU's input,
+    each max-pool's argmax, each bilinear sample's cell (the floor of its
+    unnormalised coordinates) and each quantizer's code indices. With
+    ``forced`` (another pass's record) the decisions of ``kinds`` are taken
+    from it instead, and the pass computes the continuation of each function
+    past the kink: the other branch of a ReLU, the value at the other
+    argmax, the bilinear weights of the other cell (which then fall just
+    outside [0, 1]), the other code."""
+
+    KINDS = ("leaky_relu", "relu", "max_pool", "grid_sample", "vq")
+
+    def __init__(self, forced=None, kinds=()):
+        self.seen, self.forced, self.kinds = [], forced, set(kinds)
+
+    def _decide(self, kind, natural):
+        i = len(self.seen)
+        self.seen.append((kind, natural.detach().cpu()))
+        if self.forced is not None and kind in self.kinds:
+            k, d = self.forced[i]
+            assert k == kind and d.shape == natural.shape, (i, k, kind)
+            return d.to(natural.device), True
+        return natural, False
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+        from ccvs_tpu_torch.nn import decoder, layers, quantizer
+        from ccvs_tpu_torch.ops import fused_act
+
+        orig = {"relu": torch.relu, "max_pool2d": F.max_pool2d, "grid_sample": F.grid_sample,
+                "vq": quantizer.vq_lookup_auto}
+
+        def leaky_relu(x, negative_slope=0.2):
+            m, _ = self._decide("leaky_relu", x >= 0)
+            return torch.where(m, x, x * negative_slope)
+
+        def relu(x):
+            m, forced = self._decide("relu", x > 0)
+            return torch.where(m, x, torch.zeros_like(x)) if forced else orig["relu"](x)
+
+        def max_pool2d(x, kernel_size, *args, **kw):
+            out, idx = orig["max_pool2d"](x, kernel_size, *args, return_indices=True, **kw)
+            idx, forced = self._decide("max_pool", idx)
+            if not forced:
+                return out
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        def grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=False):
+            h, w = inp.shape[-2:]
+            ix = ((grid[..., 0] + 1) * w - 1) / 2
+            iy = ((grid[..., 1] + 1) * h - 1) / 2
+            cell, forced = self._decide("grid_sample",
+                                        torch.stack([ix.floor(), iy.floor()], -1).long())
+            if not forced:
+                return orig["grid_sample"](inp, grid, mode=mode, padding_mode=padding_mode,
+                                           align_corners=align_corners)
+            n, c = inp.shape[:2]
+            x0, y0 = cell[..., 0], cell[..., 1]
+            wx1, wy1 = ix - x0.to(ix.dtype), iy - y0.to(iy.dtype)
+            out = 0
+            for dx, wx in ((0, 1 - wx1), (1, wx1)):
+                for dy, wy in ((0, 1 - wy1), (1, wy1)):
+                    xs, ys = x0 + dx, y0 + dy
+                    valid = ((xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)).to(inp.dtype)
+                    flat = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)).flatten(1)
+                    vals = inp.flatten(2).gather(2, flat[:, None].expand(n, c, -1))
+                    out = out + vals.view(n, c, *x0.shape[1:]) * (wx * wy * valid)[:, None]
+            return out
+
+        def vq_lookup_auto(z, codebook):
+            z_q, idx = orig["vq"](z, codebook)
+            idx, forced = self._decide("vq", idx)
+            if not forced:
+                return z_q, idx
+            return codebook.index_select(0, idx.flatten()).to(z.dtype).reshape(z.shape), idx
+
+        self._saved = [(fused_act, "leaky_relu", fused_act.leaky_relu),
+                       (layers, "leaky_relu", layers.leaky_relu),
+                       (decoder, "leaky_relu", decoder.leaky_relu),
+                       (torch, "relu", torch.relu), (F, "max_pool2d", F.max_pool2d),
+                       (F, "grid_sample", F.grid_sample),
+                       (quantizer, "vq_lookup_auto", quantizer.vq_lookup_auto)]
+        for mod, name, fn in ((fused_act, "leaky_relu", leaky_relu),
+                              (layers, "leaky_relu", leaky_relu),
+                              (decoder, "leaky_relu", leaky_relu), (torch, "relu", relu),
+                              (F, "max_pool2d", max_pool2d), (F, "grid_sample", grid_sample),
+                              (quantizer, "vq_lookup_auto", vq_lookup_auto)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _g_vid_gradient(tr, state_sd, batch, device, trace, float64=False):
+    """The video G step's loss gradient with respect to the autoencoder's
+    parameters, from the train state ``state_sd``, under ``trace``. With
+    ``float64`` every tensor, parameters included, is float64 (``.float()``
+    returns float64 while it runs)."""
+    import copy
+
+    import torch
+
+    state = tr.init_state()
+    state.load_state_dict(copy.deepcopy(state_sd))
+    if float64:
+        for m in (state.gen, state.disc, tr.losses.vgg):
+            m.double()
+    b = {k: v.to(device) for k, v in batch.items()}
+    if float64:
+        b = {k: v.double() if v.is_floating_point() else v for k, v in b.items()}
+    params = dict(state.gen.named_parameters())
+    to_float = torch.Tensor.float
+    if float64:
+        torch.Tensor.float = lambda self, *a, **kw: self.double()
+    try:
+        with trace:
+            loss, _ = tr.losses.vid_generator_loss(b, None)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    finally:
+        torch.Tensor.float = to_float
+    return {n: (torch.zeros_like(p) if g is None else g).detach().double().cpu()
+            for (n, p), g in zip(params.items(), grads)}
+
+
+def trace_kink(seed=6, card="cuda"):
+    """Phase 11 (a) at data seed ``seed`` (Python's ``random``, which draws
+    the synthetic clips' augmentation), then its worst video G step's worst
+    gradient entry traced: the step repeated from the card's saved inputs
+    (its train state before the step and its batch) on the card and on the
+    CPU in fp32, each pass's decisions recorded (:class:`KinkTrace`), and the
+    entry recomputed on the CPU in float64 with every decision free, forced
+    to the card's, forced to the CPU's, and forced to the CPU's but for one
+    kind of kink at a time. The card and the CPU fall on opposite sides of
+    kinks where their decisions differ; those kinks explain the difference
+    when float64 with the card's decisions gives the card's value and with
+    the CPU's the CPU's. Prints the result as one JSON line, ``trace: {...}``."""
+    import torch
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
+
+    random.seed(seed)
+    snaps, worst = {}, {"err": -1.0}
+
+    def on_step(when, it, kind, mode, a, b):
+        if (kind, mode) != ("g", "vid"):
+            return
+        if when == "before":
+            snaps[it] = (_to_cpu(a.state_dict()), _to_cpu(b))
+            return
+        err, name = b["grad_err"]
+        if err > worst["err"]:
+            diff = (a["ggrad"][name].detach().double().cpu()
+                    - a["cgrad"][name].detach().double().cpu()).abs()
+            index = int(diff.argmax())
+            worst.update(err=err, name=name, it=it, index=index, snap=snaps[it],
+                         phase=[float(a[k][name].flatten()[index]) for k in ("ggrad", "cgrad")])
+
+    try:
+        phase_ae_reference(on_step)
+        log(f"trace: phase 11 (a) passes at data seed {seed}")
+    except AssertionError as e:
+        log(f"trace: phase 11 (a) at data seed {seed} fails: {e}")
+    name, index, (state_sd, batch) = worst["name"], worst["index"], worst["snap"]
+    cfg = small_ae_config()
+    trainers = {dev: FrameAutoencoderTrainer(cfg, dtype=torch.float32, device=dev)
+                for dev in (card, "cpu")}
+    tr64 = FrameAutoencoderTrainer(cfg, dtype=torch.float64, device="cpu")
+    # the seeded VGG is drawn on each device's generator: all take the CPU's,
+    # as phase 11 (a) does (the train state does not hold it)
+    for tr in (trainers[card], tr64):
+        tr.losses.vgg.load_state_dict(trainers["cpu"].losses.vgg.state_dict())
+    runs = {}
+    for dev, tr in trainers.items():
+        trace = KinkTrace()
+        runs[dev] = (_g_vid_gradient(tr, state_sd, batch, dev, trace), trace.seen)
+    rec = {dev: runs[dev][1] for dev in runs}
+    scale = float(max(g.abs().max() for g in runs["cpu"][0].values()))
+
+    def entry(grads):
+        return float(grads[name].flatten()[index])
+
+    g_card, g_cpu = entry(runs[card][0]), entry(runs["cpu"][0])
+    flips = {k: [0, 0] for k in KinkTrace.KINDS}
+    for (k, a), (_, b) in zip(rec[card], rec["cpu"]):
+        d = (a != b).reshape(a.shape[0], -1) if k != "grid_sample" else (a != b).any(-1)
+        flips[k][0] += int(d.sum())
+        flips[k][1] += d.numel()
+    f64 = {}
+    for label, forced, kinds in (("free", None, ()), ("card", rec[card], KinkTrace.KINDS),
+                                 ("cpu", rec["cpu"], KinkTrace.KINDS)):
+        f64[label] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
+                                           KinkTrace(forced, kinds), float64=True))
+    # one kind at a time from the card, the rest from the CPU; a mixed
+    # record (the card's decisions of one kind, the CPU's of the others)
+    by_kind = {}
+    for k in KinkTrace.KINDS:
+        if flips[k][0]:
+            mixed = [(kk, a if kk == k else b) for (kk, a), (_, b) in zip(rec[card], rec["cpu"])]
+            by_kind[k] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
+                                               KinkTrace(mixed, KinkTrace.KINDS), float64=True))
+    gap = abs(g_card - g_cpu)
+    kink = (gap > 0 and abs(f64["card"] - g_card) <= 0.1 * gap
+            and abs(f64["cpu"] - g_cpu) <= 0.1 * gap)
+    out = {"seed": seed, "iteration": worst["it"], "parameter": name, "index": index,
+           "card_in_phase": worst["phase"][0], "cpu_in_phase": worst["phase"][1],
+           "card": g_card, "cpu": g_cpu, "step_largest": scale, "gap_over_largest": gap / scale,
+           "float64_free": f64["free"], "float64_card_decisions": f64["card"],
+           "float64_cpu_decisions": f64["cpu"],
+           "float64_card_decisions_of_one_kind": by_kind,
+           "decisions_differing": {k: v for k, v in flips.items()},
+           "explained_by_kinks": kink}
+    log("trace: " + json.dumps(out))
+    return out
+
+
+def _to_cpu(tree):
+    """A copy of a nested state dict with every tensor on the CPU."""
+    import copy
+
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
 def main():
     import torch
 
@@ -2203,6 +2801,8 @@ def main():
         phase_train(records, card)
     with phase("11 autoencoder training"):
         phase_ae_train(records, card)
+    with phase("12 generate and score"):
+        phase_generate(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2211,4 +2811,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["trace-kink"]:
+        # python3 chip_smoke.py trace-kink [SEED]: fault 4's trace, see trace_kink
+        trace_kink(int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    else:
+        main()

@@ -384,6 +384,37 @@ def test_ae_trainer_runs_evaluates_and_resumes(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(ema.parameters(), resumed.ema.parameters()))
 
 
+def test_resumed_ae_run_draws_what_an_uninterrupted_run_draws(tmp_path):
+    """With ``inter_drop_p > 0`` every iteration draws context-drop masks.
+    Iteration 2's generator, before and after its draws, is the same in an
+    uninterrupted run of 3 iterations and in a run resumed at 2: each
+    iteration's generator comes from ``(seed, it)``."""
+    seen = {}
+
+    def run(name, n_iter, resume=False):
+        cfg = _ae_config(tmp_path, inter_drop_p=0.5).replace(name=name, npz_mirror="",
+                                                              save_latest_freq=100)
+        tr = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cpu")
+        iteration = tr.iteration
+
+        def recording(state, it, img, vid=None, generator=None):
+            before = generator.get_state().clone()
+            out = iteration(state, it, img, vid, generator)
+            seen[name, it] = before, generator.get_state().clone()
+            return out
+
+        tr.iteration = recording
+        tr.run(n_iter=n_iter, resume=resume)
+
+    run("whole", 3)
+    run("cut", 2)
+    run("cut", 3, resume=True)
+    for it in range(3):
+        before, after = seen["whole", it]
+        assert not torch.equal(before, after), f"iteration {it} drew nothing"
+        assert torch.equal(before, seen["cut", it][0]) and torch.equal(after, seen["cut", it][1])
+
+
 def test_ae_trainer_checkpoints_on_sigterm(tmp_path):
     cfg = _ae_config(tmp_path).replace(n_iter=6, npz_mirror="")
     trainer = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cpu")

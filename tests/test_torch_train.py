@@ -293,6 +293,8 @@ STEP_FORMS = {
     "grad_accum": dict(grad_accum=2),
     "finetune_frozen": dict(finetune_head=True, finetune_f=None),
     "finetune_0.1": dict(finetune_head=True, finetune_f=0.1),
+    # the JAX step runs the GPT deterministic: dropout does not act in it
+    "resid_pdrop_0.1": dict(resid_pdrop=0.1, attn_pdrop=0.1),
 }
 N_ITER = 4
 
@@ -663,8 +665,8 @@ def test_transformer_trainer_checkpoints_on_sigterm(tmp_path):
     trainer = TransformerTrainer(cfg, ae, dtype=torch.float32, device="cpu")
     step = trainer.step
 
-    def step_then_signal(state, batch, generator=None):
-        out = step(state, batch, generator)
+    def step_then_signal(state, batch):
+        out = step(state, batch)
         if out[0].step == 2:
             os.kill(os.getpid(), signal.SIGTERM)
         return out
