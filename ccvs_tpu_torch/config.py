@@ -9,8 +9,7 @@ Fields keep the JAX package's names and defaults. Only the fields the port
 reads are here, and the data group whole: the autoencoder options no preset
 sets (``no_corr``, ``skip_rgb``, ``keep_first``, deformable convolutions,
 ...), and ``emb_mode`` other than ``"temporal"``, come with the slices that
-need them; layouts and adaptive augmentation are named so that asking for
-them raises.
+need them.
 """
 
 import dataclasses
@@ -159,10 +158,20 @@ class AutoencoderConfig:
     vid_step_every: int = 1
     use_ema: bool = True
     ema_decay: float = 0.999
-    # adaptive discriminator augmentation and layouts (not ported: raise)
+    # adaptive discriminator augmentation (train/ada.py): a fixed
+    # probability ``aug_p``, or with ``aug_p = 0`` the adaptive one, moved
+    # by the sign of ``mean(sign(D(real))) - ada_target`` each image D step,
+    # ``n / ada_length`` at a time for a batch of n
     use_aug: bool = False
     aug_p: float = 0.0
+    ada_target: float = 0.6
+    ada_length: int = 500000
+    # layout twins: an encoder and quantizer over one-hot segmentations of
+    # ``layout_size`` classes, and a decoder of their logits (the image
+    # decoder's second head with ``same_decoder_layout``)
     use_layout: bool = False
+    layout_size: Optional[int] = None
+    same_decoder_layout: bool = False
     stddev_group: int = 4
     n_consecutive_dis: int = 1
     downsample_dis_num: int = 0
@@ -244,7 +253,9 @@ class TransformerConfig:
     # int8 weights and activations in the decode step (nn/quantized.py)
     serve_int8: bool = False
 
-    # segmentation layouts as the control stream (not ported: raises)
+    # segmentation layouts as the control stream: the autoencoder's layout
+    # tokens take the place of state tokens (``state_num`` = the layout
+    # codebook's size, ``state_size`` = tokens a layout frame)
     layout: bool = False
 
     # training (train/states.py, train/steps.py): dropout and the MLP's
@@ -320,9 +331,8 @@ JAX_ONLY_DEFAULTS = {
         "use_q_anyway": False, "use_inter": True, "no_corr": False, "no_proj": False,
         "use_masked_flow": False, "use_deformed_conv": False, "use_tradeoff": False,
         "skip_rgb": False, "skip_tanh": False, "skip_mode": "enc", "keep_first": False,
-        "n_first": 1, "shared_x_split": True, "decode_buckets": (2, 4, 8), "layout_size": None,
-        "same_decoder_layout": False, "serve_fused": False, "weight_decay": 0.0,
-        "use_quant_loss_vid": False, "ada_target": 0.6, "ada_length": 500000,
+        "n_first": 1, "shared_x_split": True, "decode_buckets": (2, 4, 8),
+        "serve_fused": False, "weight_decay": 0.0, "use_quant_loss_vid": False,
         "decoder_only": False, "dtype": "bfloat16",
     },
     "gpt": {"emb_mode": "temporal", "is_continuous": False, "n_in": 3, "n_proposals": 1,

@@ -5,10 +5,9 @@ point-to-point and unconditional modes; beam search and the sliding window
 for clips longer than the transformer's window (in
 :class:`~ccvs_tpu_torch.models.transformer.TokenTransformer`); ``down_size``;
 step-by-step generation, which re-encodes each decoded frame; generation
-from one image; and :meth:`VideoGenerator.save_batch`, which writes a
-batch's clips as MJPEG AVIs.
-
-Layouts are not ported yet (``ROADMAP.md``, queue 1).
+from one image; layout-conditioned generation, whose layout tokens are the
+control stream; and :meth:`VideoGenerator.save_batch`, which writes a
+batch's clips (and colour-mapped layouts) as MJPEG AVIs.
 """
 
 import os
@@ -56,7 +55,13 @@ class VideoGenerator:
             when None.
           down_size: degrade ``real_vid`` first: resize its frames to
             ``down_size`` square and back (bilinear, antialiased).
-          layout: not ported yet; raises.
+          layout: ``(B, T, H, W)`` integer segmentations: with
+            ``cfg.gpt.layout`` (and the autoencoder's shared-decoder layout
+            twins) their tokens are the control stream, and the decode is
+            :meth:`FrameAutoencoder.decode_video_layout`. Past the context
+            the transformer samples the layouts, unless ``keep_state``
+            gives it the whole stream (and the decode the given layouts'
+            features).
 
         With ``cfg.gpt.deblurring`` the tokens of the blurred clip are the
         whole given state stream, and the decode's context frames are the
@@ -70,13 +75,12 @@ class VideoGenerator:
           where there is one; with state conditioning ``state`` (the real
           clip's estimated states) and ``fake_state`` ``(B, T, state_size)``
           (the generated states); ``blur`` (the blurred clip) with
-          deblurring; ``vid_lbl`` where the labels were drawn here. In
-          point-to-point mode the last frame of ``fake`` is the real end
-          frame.
+          deblurring; ``vid_lbl`` where the labels were drawn here; with
+          layouts ``real_layout`` (the given one), ``fake_layout`` and
+          ``rec_layout`` (the argmax of the decoded layout logits, ``(B, T,
+          H, W)``). In point-to-point mode the last frame of ``fake`` is the
+          real end frame.
         """
-        if layout is not None:
-            raise NotImplementedError("generate(layout=...) is not ported yet; see ROADMAP.md, "
-                                      "queue 1")
         cfg = self.cfg
         gcfg = cfg.gpt
         b, t = real_vid.shape[:2]
@@ -99,6 +103,18 @@ class VideoGenerator:
                 state_code = self.state_model.encode(state=out["state"])
         if gcfg.stft and self.stft_model is not None and stft is not None:
             state_code = self.stft_model.encode(stft)
+        lenc = None
+        if gcfg.layout and layout is not None:
+            # the layout tokens are the control stream (``generator.py:107-118``)
+            if self.ae.encoder_l is None:
+                raise ValueError("cfg.gpt.layout needs the autoencoder's layout twins "
+                                 "(cfg.ae.use_layout)")
+            if gcfg.p2p:
+                raise ValueError("layouts with the point-to-point mode are not a reference "
+                                 "configuration")
+            lenc = self.ae.encode_layout(layout)
+            state_code = lenc["code"].reshape(b, -1)
+            out["real_layout"] = layout
         ctx_vid = real_vid
         if gcfg.deblurring:
             ctx_vid = out["blur"] = blur_video(real_vid, gcfg.blur_sigma)
@@ -117,13 +133,14 @@ class VideoGenerator:
             delta = torch.full((b,), t - 1, dtype=torch.long, device=code_all.device)
             cond_inter = [f[:, -1] for f in enc["inter"]]
         total_len = t * size  # the prefix's tokens and the body's
-        if gcfg.state or gcfg.stft or gcfg.deblurring:
+        if gcfg.state or gcfg.stft or gcfg.deblurring or gcfg.layout:
             total_len += t_step * gcfg.state_size
 
         ctx_code = code_all[:, :n_ctx_frames * size]
         # audio and blurred streams are given whole; otherwise the transformer
-        # samples the states past the context unless keep_state
-        if state_code is not None and not (gcfg.stft or gcfg.deblurring or keep_state):
+        # samples the states (or layouts) past the context unless keep_state
+        given_stream = gcfg.stft or gcfg.deblurring or keep_state
+        if state_code is not None and not given_stream:
             state_code = state_code[:, :n_ctx_frames * gcfg.state_size]
 
         if fake:
@@ -132,9 +149,21 @@ class VideoGenerator:
                                             total_len=total_len)
             codes = gen["code"][:, :t_step * size]
             out["code"] = codes
-            fake_vid = self.ae.decode_video(codes.reshape(b, t_step, size),
-                                            ctx_frames=ctx_vid[:, :n_ctx_frames],
-                                            n_ctx=n_ctx_frames, cond_inter=cond_inter)
+            if lenc is not None:
+                # the generated (or given) layout tokens drive the shared
+                # decoder; past a given stream the rollout re-encodes its own
+                # layouts (``quantized_video_model.py:879-897``)
+                ss = gcfg.state_size
+                lcodes = gen["state_code"][:, :t_step * ss].reshape(b, t_step, ss)
+                interl = [f[:, n_ctx_frames:] for f in lenc["inter"]] if given_stream else None
+                fake_vid, fake_lay = self.ae.decode_video_layout(
+                    codes.reshape(b, t_step, size), lcodes, ctx_vid[:, :n_ctx_frames],
+                    layout[:, :n_ctx_frames], n_ctx=n_ctx_frames, interl_gen=interl)
+                out["fake_layout"] = fake_lay.float().argmax(-1)
+            else:
+                fake_vid = self.ae.decode_video(codes.reshape(b, t_step, size),
+                                                ctx_frames=ctx_vid[:, :n_ctx_frames],
+                                                n_ctx=n_ctx_frames, cond_inter=cond_inter)
             if gcfg.p2p:
                 fake_vid = torch.cat([fake_vid, real_vid[:, -1:].to(fake_vid.dtype)], dim=1)
             out["fake"] = fake_vid
@@ -144,7 +173,15 @@ class VideoGenerator:
                 if self.state_model is not None and not gcfg.stft:
                     out["fake_state"] = self.state_model.decode(sc).reshape(b, t,
                                                                             gcfg.state_size)
-        if rec:
+        if rec and lenc is not None:
+            # the rollout of the real tokens with the whole given layout
+            # stream (``generator.py:181-184``)
+            out["rec"], rec_lay = self.ae.decode_video_layout(
+                enc["code"].reshape(b, t, size), lenc["code"].reshape(b, t, size),
+                real_vid[:, :n_ctx_frames], layout[:, :n_ctx_frames], n_ctx=n_ctx_frames,
+                interl_gen=[f[:, n_ctx_frames:] for f in lenc["inter"]])
+            out["rec_layout"] = rec_lay.float().argmax(-1)
+        elif rec:
             out["rec"] = self.ae.decode_video(enc["code"].reshape(b, t, size),
                                               ctx_frames=real_vid[:, :n_ctx_frames],
                                               n_ctx=n_ctx_frames)
@@ -267,23 +304,22 @@ class VideoGenerator:
         """Write a batch's clips as AVIs under ``result_path``: ``real/``,
         and ``fake/`` and ``rec/`` where ``out`` has them; with states
         (``out["state"]``, ``out["fake_state"]``) also ``real_state/`` and
-        ``fake_state/``, copies marked with a cross at each frame's state.
+        ``fake_state/``, copies marked with a cross at each frame's state;
+        with layouts (``real_layout``, ``fake_layout``, ``rec_layout``:
+        classes ``(B, T, H, W)`` or logits ``(B, T, H, W, n)``) their
+        colour-mapped videos (:func:`~ccvs_tpu_torch.utils.video_io.layout_to_uint8`).
 
         A clip is named ``vid_{id:05d}{_cat}.avi``: ``id`` is ``vid_ids[i]``
         when given (the dataset's ids, ``--include-id``), else ``batch_size *
         global_iter + i``; ``_cat`` is ``_{cats[i]}`` when ``cats`` is given.
         Tensors (any dtype, any device) move once to the host as fp32, so
-        the files are byte for byte the JAX package's for the same values.
-        Layout outputs (``*_layout``) raise until layouts are ported."""
+        the files are byte for byte the JAX package's for the same values."""
 
         def _vid_name(i):
             vid_id = int(vid_ids[i]) if vid_ids is not None else batch_size * global_iter + i
             suffix = f"_{cats[i]}" if cats is not None else ""
             return f"vid_{vid_id:05d}{suffix}.avi"
 
-        if any(name in out for name in ("real_layout", "fake_layout", "rec_layout")):
-            raise NotImplementedError("save_batch: layout videos are not ported yet; see "
-                                      "ROADMAP.md, queue 1")
         names = {"real": video_io.to_host_f32(real_vid)}
         for name in ("fake", "rec"):
             if name in out:
@@ -294,6 +330,17 @@ class VideoGenerator:
             for i in range(u8.shape[0]):
                 video_io.write_video(os.path.join(result_path, name, _vid_name(i)), u8[i],
                                      fps=fps)
+        for name in ("real_layout", "fake_layout", "rec_layout"):
+            if name in out:
+                seg = out[name]
+                if isinstance(seg, torch.Tensor):
+                    seg = seg.detach().cpu().numpy()
+                if np.ndim(seg) == 5:  # logits -> classes
+                    seg = np.argmax(seg, -1)
+                u8 = video_io.layout_to_uint8(seg)
+                for i in range(u8.shape[0]):
+                    video_io.write_video(os.path.join(result_path, name, _vid_name(i)), u8[i],
+                                         fps=fps)
         for name, key in (("real_state", "state"), ("fake_state", "fake_state")):
             if key in out:
                 u8 = u8s["real" if key == "state" else "fake"]

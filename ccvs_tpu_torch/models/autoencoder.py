@@ -1,5 +1,7 @@
 """Frame autoencoder: encode, quantize, and the doubly-autoregressive video
-decode (counterpart of ``ccvs_tpu/models/autoencoder.py``).
+decode (counterpart of ``ccvs_tpu/models/autoencoder.py``), with the layout
+twins: an encoder and quantizer over one-hot segmentation maps and their
+decode, alone or through the image decoder (``same_decoder_layout``).
 
 The JAX package scans the rollout step as compiled programs; here it is a
 Python loop over frames with the same fixed-shape per-resolution context
@@ -7,6 +9,7 @@ FIFO ``(B, M, h, w, c)`` and validity mask. Public tensors are NHWC.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ccvs_tpu_torch.device import resolve_device
@@ -22,15 +25,30 @@ class FrameAutoencoder(nn.Module):
     parameters; the trainer holds fp32 ones under bf16 compute, as the JAX
     package does), except the codebook: it stays fp32, as vector
     quantization (kernel K1) is fp32, and the decoder casts the latents it
-    looks up."""
+    looks up.
+
+    With ``cfg.use_layout`` it has the layout twins (``quantized_video_model
+    .py:132-160``): ``encoder_l`` and ``quantizer_l`` over one-hot layouts of
+    ``cfg.layout_size`` classes, and either ``decoder_l`` (their own
+    decoder) or, with ``same_decoder_layout``, the image decoder in mode
+    "both", which decodes image and layout latents together into a frame
+    and layout logits."""
 
     def __init__(self, cfg, dtype=torch.bfloat16, device=None, param_dtype=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        shared = cfg.use_layout and cfg.same_decoder_layout
+        self.encoder_l = self.quantizer_l = self.decoder_l = None
         with resolve_device(device):
-            self.encoder = SkipEncoder(cfg, dtype=dtype, param_dtype=param_dtype)
+            self.encoder = SkipEncoder(cfg, **kw)
             self.quantizer = VectorQuantizer(cfg.z_num, cfg.z_size)
-            self.decoder = SkipDecoder(cfg, dtype=dtype, param_dtype=param_dtype)
+            self.decoder = SkipDecoder(cfg, mode="both" if shared else "rgb", **kw)
+            if cfg.use_layout:
+                self.encoder_l = SkipEncoder(cfg, mode="layout", **kw)
+                self.quantizer_l = VectorQuantizer(cfg.z_num, cfg.z_size)
+                if not shared:
+                    self.decoder_l = SkipDecoder(cfg, mode="layout", **kw)
 
     @property
     def device(self):
@@ -43,7 +61,9 @@ class FrameAutoencoder(nn.Module):
         init_equalized(self, g)
         with torch.no_grad():
             n_e = self.cfg.z_num
-            self.quantizer.embedding.uniform_(-1.0 / n_e, 1.0 / n_e, generator=g)
+            for q in (self.quantizer, self.quantizer_l):
+                if q is not None:
+                    q.embedding.uniform_(-1.0 / n_e, 1.0 / n_e, generator=g)
         return self
 
     # ---------------- shapes ----------------
@@ -81,6 +101,40 @@ class FrameAutoencoder(nn.Module):
     def embed_code(self, code):
         """Token indices ``(B[, T], h*w)`` -> latents ``(B[, T], h, w, z_size)``."""
         return self.quantizer.embed_code(code.reshape(*code.shape[:-1], *self.cfg.z_shape))
+
+    # ---------------- layouts ----------------
+
+    def one_hot_layout(self, layout):
+        """Integer segmentations ``(B[, T], H, W)`` -> one-hot ``(..., layout_size)``
+        fp32 (``quantized_video_model.py:259,491``)."""
+        return F.one_hot(layout.long(), self.cfg.layout_size).float()
+
+    @torch.no_grad()
+    def encode_layout(self, layout):
+        """Layouts ``(B[, T], H, W)`` -> dict of ``code`` ``(B[, T], h*w)``
+        (the layout codebook's indices: one K1 launch on CUDA), ``z`` (the
+        quantized layout latents) and ``inter`` (the layout encoder's context
+        features per resolution, finest first)."""
+        zl, inters = self.encoder_l(self.one_hot_layout(layout).to(self.dtype))
+        zl_q, idx = self.quantizer_l.quantize(zl.float())
+        lead = idx.shape[:idx.ndim - 2]
+        return {"code": idx.reshape(*lead, -1), "z": zl_q, "inter": inters}
+
+    @staticmethod
+    def merge_layout_inters(inter, inter_l):
+        """Per resolution the first half of the image features' channels and
+        the second half of the layout features' (``quantized_video_model.py:
+        330-334``)."""
+        out = []
+        for f, fl in zip(inter, inter_l):
+            half = f.shape[-1] // 2
+            out.append(torch.cat([f[..., :half], fl[..., half:].to(f.dtype)], dim=-1))
+        return out
+
+    def embed_layout_code(self, code):
+        """Layout token indices ``(B[, T], h*w)`` -> layout latents through
+        the layout codebook (``quantized_video_model.py:840-842``)."""
+        return self.quantizer_l.embed_code(code.reshape(*code.shape[:-1], *self.cfg.z_shape))
 
     # ---------------- single-frame decode ----------------
 
@@ -159,3 +213,60 @@ class FrameAutoencoder(nn.Module):
                 fifo, rgb = self._decode_step_fn(fifo, curr, z_all[:, curr], extra_ctx=cond_inter)
             frames.append(rgb[:, None])
         return torch.cat(frames, dim=1)
+
+    @torch.no_grad()
+    def decode_video_layout(self, codes, layout_codes, ctx_frames, ctx_layout, n_ctx=1,
+                            interl_gen=None):
+        """The layout-conditioned doubly-AR rollout of the shared decoder
+        (``same_decoder_layout``; the ``use_layout`` branch of
+        ``QVidModel.decode``, ``quantized_video_model.py:836-903``): each
+        frame decodes its image and layout latents together against a FIFO
+        of context features that are half image, half layout channels
+        (:meth:`merge_layout_inters`); each decoded frame is re-encoded, its
+        layout either given (``interl_gen``) or re-encoded from the argmax of
+        its own layout logits.
+
+        Args:
+          codes, layout_codes: ``(B, T, h*w)`` frame and layout tokens, the
+            context frames' included.
+          ctx_frames: ``(B, n_ctx, H, W, 3)`` real context frames;
+            ``ctx_layout`` ``(B, n_ctx, H, W)`` their layouts.
+          interl_gen: optional, per resolution ``(B, T - n_ctx, h_r, w_r,
+            c_r)``: the given layouts' encoder features of the frames after
+            the context.
+
+        Returns:
+          ``(vid, layout_logits)``: ``(B, T, H, W, 3)`` and ``(B, T, H, W,
+          layout_size)`` in the compute dtype.
+        """
+        cfg = self.cfg
+        if not (cfg.use_layout and cfg.same_decoder_layout):
+            raise ValueError("the layout rollout needs the shared-decoder layout twins "
+                             "(use_layout and same_decoder_layout)")
+        b, t = codes.shape[:2]
+        m = cfg.skip_memory
+        z = torch.cat([self.embed_code(codes), self.embed_layout_code(layout_codes)], dim=-1)
+        merged = self.merge_layout_inters(self.encode(ctx_frames)["inter"],
+                                          self.encode_layout(ctx_layout)["inter"])
+        ctx_rgb, ctx_lay = self.decoder(
+            z[:, :n_ctx].to(self.dtype),
+            [f.reshape(b * n_ctx, 1, *f.shape[2:]) for f in merged])
+        fifo = self._zero_inters(b, m)
+        take = min(n_ctx, m)
+        for r in range(len(fifo)):
+            fifo[r][:, m - take:] = merged[r][:, n_ctx - take:n_ctx].to(self.dtype)
+        frames, lays = [ctx_rgb], [ctx_lay]
+        for curr in range(n_ctx, t):
+            kb = min(curr, m)
+            rgb, lay = self.decoder(z[:, curr].to(self.dtype), [f[:, m - kb:] for f in fifo],
+                                    ctx_mask=self.fifo_mask(b, curr, slots=kb))
+            if interl_gen is None:
+                seg = lay.float().argmax(-1)
+                new_interl = self.encoder_l(self.one_hot_layout(seg).to(self.dtype))[1]
+            else:
+                new_interl = [f[:, curr - n_ctx] for f in interl_gen]
+            fifo = self.fifo_push(fifo, self.merge_layout_inters(self.refresh_inter(rgb),
+                                                                 new_interl))
+            frames.append(rgb[:, None])
+            lays.append(lay[:, None])
+        return torch.cat(frames, dim=1), torch.cat(lays, dim=1)

@@ -151,16 +151,23 @@ def interblock_schedule(num_resolutions):
 
 
 class SkipDecoder(nn.Module):
-    """SkipGAN decoder (RGB) with a context-fusion InterBlock per resolution."""
+    """SkipGAN decoder with a context-fusion InterBlock per resolution.
+    ``mode``: ``"rgb"`` decodes frames; ``"layout"`` layout logits of
+    ``cfg.layout_size`` classes (the separate layout twin); ``"both"``
+    decodes image and layout latents concatenated (``2 * z_size``
+    channels) into a frame (``rgb_head``) and layout logits (a refining
+    conv, then ``layout_head``), the shared decoder of
+    ``same_decoder_layout``."""
 
-    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
+    def __init__(self, cfg, mode="rgb", dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mode = cfg, mode
         nres = cfg.num_resolutions
         chans, sizes = cfg.dec_channels, cfg.inter_sizes_dec
         sched = interblock_schedule(nres)
         kw = dict(dtype=dtype, param_dtype=param_dtype)
-        self.add_module("block0", ConvLayerAE(cfg.z_size, chans[0], 1, **kw))
+        in_size = cfg.z_size * 2 if mode == "both" else cfg.z_size
+        self.add_module("block0", ConvLayerAE(in_size, chans[0], 1, **kw))
         for i in range(nres):
             if i > 0:
                 self.add_module(f"block{i}", ResBlockAE(chans[i - 1], chans[i], upsample=True,
@@ -168,7 +175,13 @@ class SkipDecoder(nn.Module):
             self.add_module(f"inter_block{i}", InterBlock(
                 sched[i]["flow_mult"], sched[i]["kernel"], sizes[i], sched[i]["corr_stride"],
                 first=(i == 0), **kw))
-        self.add_module(f"block{nres}", ConvLayerAE(chans[-1], 3, 1, activate=False, **kw))
+        if mode == "both":
+            self.rgb_head = ConvLayerAE(chans[-1], 3, 1, activate=False, **kw)
+            self.refine_layout = ConvLayerAE(chans[-1], chans[-1], 3, **kw)
+            self.layout_head = ConvLayerAE(chans[-1], cfg.layout_size, 1, activate=False, **kw)
+        else:
+            out = cfg.layout_size if mode == "layout" else 3
+            self.add_module(f"block{nres}", ConvLayerAE(chans[-1], out, 1, activate=False, **kw))
 
     @staticmethod
     def stack_contexts(inter_tgts):
@@ -201,9 +214,10 @@ class SkipDecoder(nn.Module):
           keep_mask: optional ``(B*T,)`` 0/1: items with 0 skip the fusion.
 
         Returns:
-          ``(B[, T], H, W, 3)``, or with ``return_all`` ``(rgb, None,
-          flows, occs, inter_dec)`` (the JAX package's tuple; the layout
-          decode is not ported).
+          ``out`` ``(B[, T], H, W, 3 | layout_size)`` (``mode`` "rgb" or
+          "layout"), or ``(rgb, layout)`` (``mode`` "both"); with
+          ``return_all`` always the JAX package's ``(out, layout or None,
+          flows, occs, inter_dec)``.
         """
         cfg = self.cfg
         z, t = flatten_vid(z)
@@ -230,7 +244,12 @@ class SkipDecoder(nn.Module):
                 inter_dec.append(fused)
             inter_flows.append(flows)
             inter_occs.append(occs)
-        rgb = unflatten_vid(getattr(self, f"block{nres}")(out), t)
+        layout = None
+        if self.mode == "both":
+            rgb = unflatten_vid(self.rgb_head(out), t)
+            layout = unflatten_vid(self.layout_head(self.refine_layout(out)), t)
+        else:
+            rgb = unflatten_vid(getattr(self, f"block{nres}")(out), t)
         if return_all:
-            return rgb, None, inter_flows, inter_occs, [unflatten_vid(f, t) for f in inter_dec]
-        return rgb
+            return rgb, layout, inter_flows, inter_occs, [unflatten_vid(f, t) for f in inter_dec]
+        return rgb if layout is None else (rgb, layout)

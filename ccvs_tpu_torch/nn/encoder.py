@@ -9,14 +9,17 @@ from ccvs_tpu_torch.nn.layers import ConvLayerAE, ResBlockAE, flatten_vid, unfla
 class SkipEncoder(nn.Module):
     """1x1 in-conv, a downsampling ResBlock per resolution, 1x1 out-conv to the
     latent size. The first ``inter_p`` of the channels at every resolution are
-    the context ("inter") features of the flow-warping decoder."""
+    the context ("inter") features of the flow-warping decoder. ``mode``
+    ``"layout"`` encodes one-hot segmentations of ``cfg.layout_size``
+    classes instead of RGB (the layout twin)."""
 
-    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
+    def __init__(self, cfg, mode="rgb", dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         chans = cfg.enc_channels
         kw = dict(dtype=dtype, param_dtype=param_dtype)
-        self.add_module("block0", ConvLayerAE(3, chans[0], 1, **kw))
+        in_size = cfg.layout_size if mode == "layout" else 3
+        self.add_module("block0", ConvLayerAE(in_size, chans[0], 1, **kw))
         for i in range(1, cfg.num_resolutions):
             self.add_module(f"block{i}", ResBlockAE(chans[i - 1], chans[i], downsample=True,
                                                     **kw))
@@ -24,7 +27,7 @@ class SkipEncoder(nn.Module):
                         ConvLayerAE(chans[-1], cfg.z_size, 1, **kw))
 
     def forward(self, x):
-        """x ``(B[, T], H, W, 3)`` -> ``(z, inters)``: z ``(B[, T], h, w,
+        """x ``(B[, T], H, W, 3 | layout_size)`` -> ``(z, inters)``: z ``(B[, T], h, w,
         z_size)`` and the context features per resolution, finest first."""
         cfg = self.cfg
         x, t = flatten_vid(x)

@@ -4,6 +4,10 @@
 align_corners=False)``, which is what the JAX package reproduces with
 gathers; its TPU tiling work-arounds (``_grid_sample_planes``, the int8
 source path) have no counterpart here, only their results.
+``bilinear_sample`` is the same sample at a grid that takes no gradient,
+differentiable any number of times in its input (adaptive augmentation's
+warp, which R1 differentiates twice; ``F.grid_sample`` has no double
+backward).
 """
 
 import torch
@@ -28,6 +32,47 @@ def grid_sample(x, grid):
     out = F.grid_sample(x.permute(0, 3, 1, 2).float(), grid.float(), mode="bilinear",
                         padding_mode="zeros", align_corners=False)
     return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class _BilinearSample(torch.autograd.Function):
+    """``grid_sampler_2d`` (bilinear, zeros, align_corners=False) of an NCHW
+    ``x`` at a ``grid`` that takes no gradient. The sample is linear in
+    ``x``: its input gradient is :class:`_BilinearSampleT`, the transposed
+    sample, whose own gradient is this sample again."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.save_for_backward(x, grid)
+        return torch.grid_sampler_2d(x, grid, 0, 0, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, grid = ctx.saved_tensors
+        return _BilinearSampleT.apply(g, x, grid), None
+
+
+class _BilinearSampleT(torch.autograd.Function):
+    """The input gradient of :class:`_BilinearSample` for output gradient
+    ``g`` (``x`` gives the input's shape)."""
+
+    @staticmethod
+    def forward(ctx, g, x, grid):
+        ctx.save_for_backward(grid)
+        return torch.ops.aten.grid_sampler_2d_backward(g, x, grid, 0, 0, False,
+                                                       [True, False])[0]
+
+    @staticmethod
+    def backward(ctx, gg):
+        grid, = ctx.saved_tensors
+        return _BilinearSample.apply(gg, grid), None, None
+
+
+def bilinear_sample(x, grid):
+    """:func:`grid_sample` of ``x`` ``(B, Hin, Win, C)`` at ``grid`` ``(B,
+    Hout, Wout, 2)`` (which takes no gradient), in ``x``'s dtype, with an
+    input gradient that is itself differentiable."""
+    out = _BilinearSample.apply(x.permute(0, 3, 1, 2), grid.detach().to(x.dtype))
+    return out.permute(0, 2, 3, 1)
 
 
 def _sample_grid(flow, h, w, grid):

@@ -16,7 +16,8 @@ and the two below).
 
 Each image step and each video step quantizes once: kernel K1 on CUDA. The
 codebook takes its gradient through the gather after K1 (``ops/vq.py``).
-Layouts and adaptive augmentation (ADA) are not ported and raise.
+The image discriminator's losses take ``aug(x, salt=0)``, the adaptive
+augmentation of their step (``train/steps.py``), where it is on.
 """
 
 import numpy as np
@@ -32,10 +33,6 @@ from ccvs_tpu_torch.train import gan_losses as gl
 
 class AELosses:
     def __init__(self, cfg, ae, di=None, dv=None, df=None, vgg=None):
-        if cfg.use_layout:
-            raise NotImplementedError("layout twins are not ported yet")
-        if cfg.use_aug:
-            raise NotImplementedError("adaptive discriminator augmentation is not ported yet")
         self.cfg, self.ae, self.di, self.dv, self.df, self.vgg = cfg, ae, di, dv, df, vgg
 
     # ---------- index plans ----------
@@ -88,6 +85,21 @@ class AELosses:
         z_q, qloss, _ = ae.quantizer(z.float())
         return z_q, qloss * self.cfg.lambda_quant, inter_enc
 
+    def _encode_layout_q(self, layout):
+        """``(zl_q, lambda_quant * VQ loss, context features)`` of the layout
+        twin; one K1 launch."""
+        ae = self.ae
+        zl, inter_l = self._ckpt(ae.encoder_l, ae.one_hot_layout(layout).to(ae.dtype))
+        zl_q, lql, _ = ae.quantizer_l(zl.float())
+        return zl_q, lql * self.cfg.lambda_quant, inter_l
+
+    @staticmethod
+    def _layout_ce(logits, layout):
+        """Mean cross-entropy of layout logits ``(..., layout_size)`` against
+        the integer layout."""
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, layout[..., None].long()).mean()
+
     def _index(self, idx, x):
         return torch.as_tensor(idx, device=x.device)
 
@@ -96,11 +108,12 @@ class AELosses:
 
     # ---------- generator losses ----------
 
-    def img_generator_loss(self, batch, generator=None):
+    def img_generator_loss(self, batch, generator=None, aug=None):
         """``compute_img_to_img_generator_loss``
         (``quantized_video_model.py:251-456``): ``(loss, (metrics, fake))``
         with ``fake = {"img", "z"}``. ``generator`` draws the context-drop
-        mask (``inter_drop_p``)."""
+        mask (``inter_drop_p``); ``aug`` augments the fake before the image
+        discriminator."""
         cfg, ae = self.cfg, self.ae
         real_img = batch["img"]
         b = real_img.shape[0]
@@ -110,12 +123,29 @@ class AELosses:
             loss = loss + quant_loss
             metrics["quant_img"] = quant_loss
 
+        # the layout twin's encode (``quantized_video_model.py:258-281``)
+        real_layout = batch.get("layout")
+        zl_q = inter_encl = None
+        if cfg.use_layout and real_layout is not None:
+            zl_q, lql, inter_encl = self._encode_layout_q(real_layout)
+            if not cfg.no_q_img:
+                loss = loss + lql
+                metrics["layout_quant_img"] = lql
+
         slide = self._index(self.slide_indices(b), real_img)
         inter_tgt = [f[slide] for f in inter_enc]
+        inter_tgtl = None if inter_encl is None else [f[slide] for f in inter_encl]
         real_tgt = real_img
         if cfg.elastic_corruption:
             nc = self._index(self.corr_split(b)[0], real_img)
             z_q, inter_tgt, real_tgt = z_q[nc], [f[nc] for f in inter_tgt], real_img[nc]
+            if zl_q is not None:
+                zl_q, real_layout = zl_q[nc], real_layout[nc]
+                inter_tgtl = [f[nc] for f in inter_tgtl]
+        if zl_q is not None and cfg.same_decoder_layout:
+            # (``quantized_video_model.py:330-334``)
+            inter_tgt = ae.merge_layout_inters(inter_tgt, inter_tgtl)
+            z_q = torch.cat([z_q, zl_q], dim=-1)
 
         keep_mask = None
         if cfg.inter_drop_p > 0:
@@ -125,9 +155,21 @@ class AELosses:
         def decode(z, inters, km):
             return ae.decoder(z, inters, return_all=True, keep_mask=km)
 
-        fake_img, _, inter_flows, inter_occs, inter_dec = self._ckpt(
+        def decode_layout(z, inters, km):
+            return ae.decoder_l(z, inters, keep_mask=km)
+
+        fake_img, fake_layout, inter_flows, inter_occs, inter_dec = self._ckpt(
             decode, z_q.to(ae.dtype), SkipDecoder.stack_contexts([inter_tgt]), keep_mask)
         fake_img = fake_img.float()
+
+        # the layout decode and its cross-entropy (``quantized_video_model.py:337-349``)
+        if zl_q is not None:
+            if not cfg.same_decoder_layout:
+                fake_layout = self._ckpt(decode_layout, zl_q.to(ae.dtype),
+                                         SkipDecoder.stack_contexts([inter_tgtl]), keep_mask)
+            lce = self._layout_ce(fake_layout, real_layout)
+            loss = loss + lce
+            metrics["layout_img"] = lce
         occ_mask = torch.sigmoid(inter_occs[-1].float()) if inter_occs else None
 
         if cfg.elastic_corruption and "mask_img" in batch:
@@ -184,7 +226,7 @@ class AELosses:
             metrics["vgg_img"] = v
 
         if cfg.use_di and self.di is not None:
-            adv = self._adv(self.di, fake_img)
+            adv = self._adv(self.di, fake_img if aug is None else aug(fake_img))
             loss = loss + adv
             metrics["gen_img"] = adv
 
@@ -209,18 +251,39 @@ class AELosses:
         loss = quant_loss
         metrics["quant_vid"] = quant_loss
 
+        # the layout twins: merged context features and concatenated latents
+        # (``quantized_video_model.py:490-520``)
+        real_layout = batch.get("layout")
+        use_layout = cfg.use_layout and cfg.same_decoder_layout and real_layout is not None
+        if use_layout:
+            zl_q, lql, inter_encl = self._encode_layout_q(real_layout)
+            if not cfg.no_q_img:
+                loss = loss + lql
+                metrics["layout_quant_vid"] = lql
+            inter_enc = ae.merge_layout_inters(inter_enc, inter_encl)
+            z_q = torch.cat([z_q, zl_q], dim=-1)
+
         delta = 1 if cfg.p2p_context else 0
         inters = []
         if cfg.p2p_context:
             inters.append([f[:, -1] for f in inter_enc])
         inters.append([f[:, 0] for f in inter_enc])
         fakes = [real_vid[:, 0].float()]
+        fake_layouts = []
         curr = 1
         for i in range(1, cfg.vid_len - delta):
             inter_tgts = [inters[-dt] for dt in cfg.skip_context if dt <= curr]
             fake_img = self._ckpt(ae.decoder, z_q[:, i].to(ae.dtype),
                                   SkipDecoder.stack_contexts(inter_tgts))
+            if use_layout:
+                fake_img, fake_layout = fake_img
             _, new_inter = self._ckpt(ae.encoder, fake_img)
+            if use_layout:
+                # the layout logits re-encoded as they are, as the JAX
+                # package does (``quantized_video_model.py:538-543``)
+                fake_layouts.append(fake_layout.float())
+                _, new_interl = self._ckpt(ae.encoder_l, fake_layout)
+                new_inter = ae.merge_layout_inters(new_inter, new_interl)
             if len(inters) >= cfg.skip_memory:
                 inters.pop(delta)
             else:
@@ -236,6 +299,12 @@ class AELosses:
         frame = real_vid.shape[2:]
         real_flat = real_vid[:, 1:].reshape(-1, *frame).float()
         fake_flat = fake_vid[:, 1:].reshape(-1, *frame)
+        if fake_layouts:
+            fl = torch.stack(fake_layouts, dim=1)
+            lce = self._layout_ce(fl, real_layout[:, 1:fl.shape[1] + 1])
+            loss = loss + lce
+            metrics["layout_vid"] = lce
+
         rec = (real_flat - fake_flat).abs().mean()
         metrics["rec_vid"] = rec
         if cfg.use_direct_recovery_vid:
@@ -255,7 +324,10 @@ class AELosses:
         # (``quantized_video_model.py:587-601``)
         fake_unc_vid = None
         if cfg.use_unc_gen:
-            fake_unc_vid = ae.decoder(z_q.to(ae.dtype), None, has_ctx=False).float()
+            fake_unc_vid = ae.decoder(z_q.to(ae.dtype), None, has_ctx=False)
+            if use_layout:
+                fake_unc_vid = fake_unc_vid[0]
+            fake_unc_vid = fake_unc_vid.float()
             unc_img = fake_unc_vid.reshape(-1, *frame)
             real_all = real_vid.reshape(-1, *frame).float()
             if cfg.use_di and self.di is not None:
@@ -282,14 +354,19 @@ class AELosses:
             return real_img[self._index(self.corr_split(real_img.shape[0])[0], real_img)]
         return real_img
 
-    def img_discriminator_loss(self, real_img, fake_img, fake_z=None):
+    def img_discriminator_loss(self, real_img, fake_img, fake_z=None, aug=None):
         """``compute_img_discriminator_loss`` (``quantized_video_model.py:629-666``):
-        ``(loss, (metrics, real_score))``; the fakes take no gradient."""
+        ``(loss, (metrics, real_score))``; the fakes take no gradient.
+        ``aug`` augments the real (salt 0) and the fake (salt 1) images
+        independently."""
         cfg = self.cfg
         real_img = self._no_corr(real_img)
         metrics, loss, real_score = {}, 0.0, None
         if cfg.use_di:
-            fake_score = self._ckpt(self.di, fake_img.detach())
+            fake_img = fake_img.detach()
+            if aug is not None:
+                real_img, fake_img = aug(real_img, 0), aug(fake_img, 1)
+            fake_score = self._ckpt(self.di, fake_img)
             real_score = self._ckpt(self.di, real_img)
             d = gl.DISCRIMINATOR_LOSSES[cfg.gan_loss](real_score, fake_score) * cfg.lambda_gan
             loss = loss + d
@@ -324,11 +401,14 @@ class AELosses:
             metrics["dis_feat_real"] = d
         return loss, metrics
 
-    def img_r1_loss(self, real_img):
+    def img_r1_loss(self, real_img, aug=None):
         """``lambda_r1 / 2 * R1 * d_reg_every`` on the real images that are
-        not corrupted contexts (``quantized_video_model.py:669-701``)."""
+        not corrupted contexts (``quantized_video_model.py:669-701``); with
+        ``aug`` the penalty is on the gradient of D of the augmented image,
+        taken with respect to the image before the augmentation."""
         cfg = self.cfg
-        gp = gl.r1_penalty(self.di, self._no_corr(real_img))
+        d = self.di if aug is None else (lambda x: self.di(aug(x)))
+        gp = gl.r1_penalty(d, self._no_corr(real_img))
         return cfg.lambda_r1 / 2.0 * gp * (cfg.d_reg_every or 1)
 
     def vid_r1_loss(self, real_vid):

@@ -26,6 +26,7 @@ from ccvs_tpu_torch.nn.discriminators import (FeatureDiscriminator, ImageDiscrim
                                               VideoDiscriminator)
 from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.vgg import make_vgg
+from ccvs_tpu_torch.train.ada import augment
 from ccvs_tpu_torch.train.ae_losses import AELosses
 from ccvs_tpu_torch.train.states import iteration_generator
 from ccvs_tpu_torch.train.steps import make_ae_steps
@@ -51,7 +52,10 @@ class FrameAutoencoderTrainer:
     ``di`` with ``use_di``, video ``dv`` with ``use_dv``, latent ``df`` with
     ``use_df``) and the perceptual loss of VGG19 (the weights of
     ``vgg_npz``, or seeded random filters), on ``device`` (default: the
-    GPU). Layouts and adaptive augmentation raise ``NotImplementedError``."""
+    GPU). With ``use_aug`` the image discriminator sees the adaptive
+    augmentation (:func:`~ccvs_tpu_torch.train.ada.augment`); with
+    ``use_layout`` the autoencoder has its layout twins and the batches
+    carry ``layout`` maps."""
 
     def __init__(self, cfg, vgg_npz=None, dtype=torch.bfloat16, device=None):
         self.cfg = cfg
@@ -67,7 +71,8 @@ class FrameAutoencoderTrainer:
         if acfg.use_vgg_img or acfg.use_vgg_vid:
             self.vgg = make_vgg(vgg_npz, seed=cfg.seed, device=self.device)
         self.losses = AELosses(acfg, self.ae, self.di, self.dv, self.df, self.vgg)
-        self.init_state, self.g_step, self.d_step, self.r1_step = make_ae_steps(self.losses)
+        self.init_state, self.g_step, self.d_step, self.r1_step = make_ae_steps(
+            self.losses, aug_fn=augment if acfg.use_aug else None)
         self.preempted = False
 
     def init_params(self, seed=None):
@@ -123,16 +128,17 @@ class FrameAutoencoderTrainer:
     def iteration(self, state, it, img_batch, vid_batch=None, generator=None):
         """One training iteration on device batches: the image G and D
         steps, R1 every ``d_reg_every``, then with ``vid_batch`` the video G
-        and D steps and their R1. Returns ``(state, g_metrics, d_metrics,
-        fake)``; ``state.step`` becomes ``it + 1``."""
+        and D steps and their R1. ``generator`` draws the context-drop mask
+        and the image steps' augmentation. Returns ``(state, g_metrics,
+        d_metrics, fake)``; ``state.step`` becomes ``it + 1``."""
         acfg = self.cfg.ae
         state, gm, fake = self.g_step(state, img_batch, "img", generator)
         dm = {}
         if self.di is not None or self.df is not None:
-            state, dm = self.d_step(state, img_batch, fake, "img")
+            state, dm = self.d_step(state, img_batch, fake, "img", generator)
         r1_now = acfg.d_reg_every and it % acfg.d_reg_every == 0
         if self.di is not None and r1_now:
-            state, rm = self.r1_step(state, img_batch, "img")
+            state, rm = self.r1_step(state, img_batch, "img", generator)
             gm.update(rm)
         if vid_batch is not None:
             state, gmv, fakev = self.g_step(state, vid_batch, "vid", generator)
@@ -152,7 +158,8 @@ class FrameAutoencoderTrainer:
         checkpoint) to ``n_iter`` (default ``cfg.n_iter``): scalars to
         ``logs/<name>/metrics.jsonl``; every ``eval_every`` iterations the
         reconstruction PSNR of a fixed valid batch (``rec_psnr``: the EMA's,
-        ``rec_psnr_raw``: the raw generator's), with PNG snapshots every
+        ``rec_psnr_raw``: the raw generator's) and the augmentation
+        probability ``ada_p``, with PNG snapshots every
         ``snapshot_every`` (PIL); a latest checkpoint every
         ``save_latest_freq`` iterations, at the end and on SIGTERM (which
         sets ``self.preempted``), a kept one every ``save_freq``; with
@@ -211,7 +218,7 @@ class FrameAutoencoderTrainer:
                     eval_count += 1
                     rec, psnr = self.rec_eval(state.ema if acfg.use_ema else state.gen,
                                               eval_batch)
-                    scalars, rec_raw = {"rec_psnr": psnr}, None
+                    scalars, rec_raw = {"rec_psnr": psnr, "ada_p": state.ada_p}, None
                     if acfg.use_ema:
                         # the 0.999 EMA lags hundreds of iterations behind
                         rec_raw, scalars["rec_psnr_raw"] = self.rec_eval(state.gen, eval_batch)

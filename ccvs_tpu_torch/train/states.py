@@ -40,6 +40,15 @@ def iteration_generator(seed, it, device=None):
     return torch.Generator(device=device).manual_seed(s)
 
 
+def fold_in(generator, *data):
+    """A ``torch.Generator`` on ``generator``'s device seeded from its seed
+    and ``data`` (the counterpart of ``jax.random.fold_in``): a stream of its
+    own for each ``data``, drawing nothing from ``generator``."""
+    s = np.random.SeedSequence([generator.initial_seed(), *data])
+    return torch.Generator(device=generator.device).manual_seed(
+        int(s.generate_state(1, np.uint64)[0]) >> 1)
+
+
 def linear_schedule(init_value, end_value, transition_steps):
     """optax's ``linear_schedule``: from ``init_value`` at count 0 to
     ``end_value`` at ``transition_steps``, then held."""
@@ -221,8 +230,9 @@ class AETrainState:
     """The autoencoder's train state: the iteration count, the generator
     (the autoencoder), the discriminators (an ``nn.ModuleDict`` of ``di``,
     ``dv``, ``df``), both optimizers, the generator's EMA (a copy of it that
-    takes no gradient) and the adaptive-augmentation probability and its
-    statistic (kept for the checkpoint's layout; ADA is not ported)."""
+    takes no gradient), and the adaptive augmentation's probability
+    ``ada_p`` and last statistic ``ada_rt`` (``mean(sign(D(real)))``), 0-d
+    fp32 tensors on the generator's device that the D step updates there."""
 
     step: int
     gen: nn.Module
@@ -230,19 +240,23 @@ class AETrainState:
     opt_g: Optimizer
     opt_d: Optimizer
     ema: nn.Module
-    ada_p: float = 0.0
-    ada_rt: float = 0.0
+    ada_p: torch.Tensor
+    ada_rt: torch.Tensor
 
     @staticmethod
     def create(cfg, gen, disc):
         ema = copy.deepcopy(gen).requires_grad_(False)
         opt_g, opt_d = make_ae_optimizers(cfg, gen.parameters(), disc.parameters())
-        return AETrainState(0, gen, disc, opt_g, opt_d, ema, float(cfg.aug_p), 0.0)
+        dev = next(gen.parameters()).device
+        return AETrainState(0, gen, disc, opt_g, opt_d, ema,
+                            torch.tensor(float(cfg.aug_p), device=dev),
+                            torch.zeros((), device=dev))
 
     def state_dict(self):
         return {"step": self.step, "gen": self.gen.state_dict(), "disc": self.disc.state_dict(),
                 "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
-                "ema": self.ema.state_dict(), "ada_p": self.ada_p, "ada_rt": self.ada_rt}
+                "ema": self.ema.state_dict(), "ada_p": self.ada_p.clone(),
+                "ada_rt": self.ada_rt.clone()}
 
     def load_state_dict(self, state):
         self.step = int(state["step"])
@@ -251,4 +265,6 @@ class AETrainState:
         self.opt_g.load_state_dict(state["opt_g"])
         self.opt_d.load_state_dict(state["opt_d"])
         self.ema.load_state_dict(state["ema"])
-        self.ada_p, self.ada_rt = float(state["ada_p"]), float(state["ada_rt"])
+        dev = self.ada_p.device
+        self.ada_p = torch.as_tensor(state["ada_p"], dtype=torch.float32).to(dev).clone()
+        self.ada_rt = torch.as_tensor(state["ada_rt"], dtype=torch.float32).to(dev).clone()

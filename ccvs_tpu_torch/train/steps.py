@@ -14,7 +14,7 @@ for them raises.
 import torch
 from torch import nn
 
-from ccvs_tpu_torch.train.states import (AETrainState, SimpleTrainState, ema_update,
+from ccvs_tpu_torch.train.states import (AETrainState, SimpleTrainState, ema_update, fold_in,
                                          make_transformer_optimizer)
 
 
@@ -43,7 +43,7 @@ def _detached(tree):
     return {k: None if v is None else v.detach() for k, v in tree.items()}
 
 
-def make_ae_steps(losses):
+def make_ae_steps(losses, aug_fn=None):
     """``(init_state, g_step, d_step, r1_step)`` of the frame autoencoder
     (``helpers/frame_autoencoder_trainer.py:49-79``) over the modules of
     ``losses`` (an :class:`~ccvs_tpu_torch.train.ae_losses.AELosses`).
@@ -55,11 +55,25 @@ def make_ae_steps(losses):
       on an image (``mode="img"``) or video batch, then the EMA; returns
       ``(state, metrics, fake)`` with ``g_loss``. ``generator`` draws the
       context-drop mask.
-    - ``d_step(state, batch, fake, mode)``: one discriminator update on
-      ``batch`` and the G step's ``fake``; returns ``(state, metrics)`` with
-      ``d_loss``.
-    - ``r1_step(state, batch, mode)``: one discriminator update on the lazy
-      R1 penalty (``r1_img`` / ``r1_vid``).
+    - ``d_step(state, batch, fake, mode, generator=None)``: one
+      discriminator update on ``batch`` and the G step's ``fake``; returns
+      ``(state, metrics)`` with ``d_loss``.
+    - ``r1_step(state, batch, mode, generator=None)``: one discriminator
+      update on the lazy R1 penalty (``r1_img`` / ``r1_vid``).
+
+    ``aug_fn(generator, img, p)`` is the adaptive augmentation
+    (:func:`~ccvs_tpu_torch.train.ada.augment`); with it and
+    ``cfg.use_aug``, the image discriminator sees augmented images at the
+    reference's three places: the G step's fake (``quantized_video_model.py
+    :418``), the D step's real and fake (``:639-640``) and R1's real
+    (``:677``), at probability ``state.ada_p``. Each place draws from a
+    stream of its own, derived from the step's ``generator`` (the JAX
+    package's ``fold_in(rng, 1 | 2 | 3)`` and its salts), so the steps then
+    need one. With ``aug_p = 0`` the image D step moves ``ada_p`` after its
+    update (``modules/non_leaking.py:28-47``): by the sign of ``r_t =
+    mean(sign(D(real))) - ada_target``, ``n / ada_length`` for n real
+    images, clipped to [0, 1]; ``ada_rt`` and the metric ``rt_stat`` hold
+    ``r_t``.
 
     ``state.step`` counts iterations and is advanced by the trainer: an
     iteration holds an image G step and, every ``vid_step_every``, a video
@@ -71,28 +85,47 @@ def make_ae_steps(losses):
     def init_state():
         return AETrainState.create(cfg, losses.ae, disc)
 
+    def _aug(state, generator, site):
+        """The augmentation of one step, ``aug(x, salt=0)``, or None."""
+        if not cfg.use_aug or aug_fn is None:
+            return None
+        if generator is None:
+            raise ValueError("adaptive augmentation draws from the step's generator; pass one")
+        gen = fold_in(generator, site)
+        return lambda x, salt=0: aug_fn(fold_in(gen, salt), x, state.ada_p)
+
     def g_step(state, batch, mode, generator=None):
-        loss_fn = losses.img_generator_loss if mode == "img" else losses.vid_generator_loss
-        loss, (metrics, fake) = loss_fn(batch, generator)
+        if mode == "img":
+            loss, (metrics, fake) = losses.img_generator_loss(
+                batch, generator, aug=_aug(state, generator, 1))
+        else:
+            loss, (metrics, fake) = losses.vid_generator_loss(batch, generator)
         _update(list(state.gen.parameters()), loss, state.opt_g)
         if cfg.use_ema:
             ema_update(state.ema, state.gen, cfg.ema_decay)
         metrics["g_loss"] = loss
         return state, _detached(metrics), _detached(fake)
 
-    def d_step(state, batch, fake, mode):
+    def d_step(state, batch, fake, mode, generator=None):
+        real_score = None
         if mode == "img":
-            loss, (metrics, _) = losses.img_discriminator_loss(batch["img"], fake["img"],
-                                                               fake.get("z"))
+            loss, (metrics, real_score) = losses.img_discriminator_loss(
+                batch["img"], fake["img"], fake.get("z"), aug=_aug(state, generator, 2))
         else:
             loss, metrics = losses.vid_discriminator_loss(batch["vid"], fake["vid"],
                                                           fake.get("z"), fake.get("unc_vid"))
         _update(list(state.disc.parameters()), loss, state.opt_d)
+        if cfg.use_aug and cfg.aug_p == 0 and real_score is not None:
+            r_t = torch.sign(real_score.detach().float()).mean()
+            step = torch.sign(r_t - cfg.ada_target) * real_score.shape[0] / cfg.ada_length
+            state.ada_p = torch.clamp(state.ada_p + step, 0.0, 1.0)
+            state.ada_rt = r_t
+            metrics["rt_stat"] = r_t
         metrics["d_loss"] = loss
         return state, _detached(metrics)
 
-    def r1_step(state, batch, mode):
-        loss = (losses.img_r1_loss(batch["img"]) if mode == "img"
+    def r1_step(state, batch, mode, generator=None):
+        loss = (losses.img_r1_loss(batch["img"], aug=_aug(state, generator, 3)) if mode == "img"
                 else losses.vid_r1_loss(batch["vid"]))
         _update(list(state.disc.parameters()), loss, state.opt_d)
         return state, {"r1_" + mode: loss.detach()}

@@ -69,8 +69,6 @@ class TransformerTrainer:
 
     def __init__(self, cfg, ae, state_model=None, stft_model=None, dtype=torch.bfloat16,
                  device=None):
-        if cfg.gpt.layout:
-            raise NotImplementedError("layout conditioning is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         for m in (ae, state_model, stft_model):
@@ -97,6 +95,20 @@ class TransformerTrainer:
         return idx.reshape(b, t, -1)
 
     @torch.no_grad()
+    def encode_layout(self, layout):
+        """Layouts ``(B, T, H, W)`` -> layout token codes ``(B, T * h*w)``,
+        those of ``ae.encode_layout``: the layout encoder over
+        ``ENCODE_FRAMES`` frames a pass, then one K1 launch over all the
+        latents."""
+        b, t = layout.shape[:2]
+        ae = self.ae
+        frames = layout.reshape(b * t, *layout.shape[2:])
+        zl = torch.cat([ae.encoder_l(ae.one_hot_layout(f).to(ae.dtype))[0]
+                        for f in frames.split(ENCODE_FRAMES)])
+        _, idx = ae.quantizer_l.quantize(zl.float())
+        return idx.reshape(b, -1)
+
+    @torch.no_grad()
     def encode_batch(self, batch) -> dict:
         """Video batch (tensors on the device) -> token batch with its
         conditioning (``helpers/transformer_trainer.py:56-81``)."""
@@ -110,6 +122,9 @@ class TransformerTrainer:
             out["state_code"] = self.state_model.encode(z=self.ae.embed_code(frame_code))
         if self.stft_model is not None and "stft" in batch:
             out["state_code"] = self.stft_model.encode(batch["stft"])
+        if gcfg.layout and "layout" in batch:
+            # layout tokens are the control stream (``quantized_video_model.py:801-819``)
+            out["state_code"] = self.encode_layout(batch["layout"])
         if gcfg.p2p:
             out["cond_code"] = code[:, -gcfg.z_chunk:]
             out["code"] = code[:, :-gcfg.z_chunk]

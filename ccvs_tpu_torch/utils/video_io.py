@@ -129,11 +129,22 @@ def to_uint8(vid, span=(-1.0, 1.0), imagenet_norm=False) -> np.ndarray:
     return (vid * 255).astype(np.uint8)
 
 
-def layout_to_uint8(seg):
-    """Colour-mapped segmentation videos come with layouts, which are not
-    ported yet."""
-    raise NotImplementedError("layout_to_uint8: layouts are not ported yet; see ROADMAP.md, "
-                              "queue 1")
+# the 19-class urban-scene colour map of the reference's layout videos
+LAYOUT_COLORMAP = np.array(
+    [[128, 64, 128], [244, 35, 232], [230, 150, 140], [70, 70, 70], [102, 102, 156],
+     [153, 153, 153], [250, 170, 30], [220, 220, 0], [107, 142, 135], [152, 251, 152],
+     [230, 150, 140], [220, 20, 60], [255, 0, 0], [0, 0, 142], [0, 0, 70],
+     [0, 60, 100], [0, 80, 100], [0, 0, 230], [119, 11, 32]], np.float32,
+) / 255.0
+
+
+def layout_to_uint8(seg: np.ndarray) -> np.ndarray:
+    """An integer segmentation video -> uint8 RGB through
+    :data:`LAYOUT_COLORMAP` (class ``c`` takes colour ``c % 19``), as the
+    reference's ``save_video_batch`` does for layouts
+    (``helpers/generator.py:287-298``)."""
+    s = np.asarray(seg).astype(int)
+    return (LAYOUT_COLORMAP[s % len(LAYOUT_COLORMAP)] * 255).astype(np.uint8)
 
 
 def draw_cross(img: np.ndarray, x: int, y: int) -> np.ndarray:

@@ -267,7 +267,10 @@ def phase_kernels(records):
     # 16 frames, the state step's of 96 images and its quantizer of 96 x 2
     # states, and the autoencoder's (phase 11): the image G step's 24 images
     # and the video G step's 4 clips of 4 frames; timed but for the context
-    # re-encodes
+    # re-encodes. The layout quantizer (phase 13) runs at shapes of this list:
+    # the layout rollout's (2048, 512) and its context's (128, 512), the AE
+    # iteration's (1536, 512) and (1024, 512), the transformer step's 2 clips
+    # (2048, 512), all against a codebook of 1024
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
@@ -311,14 +314,16 @@ def phase_kernels(records):
     # unconditional ones' (one full 16 KB tile and a ragged one of 16 rows a
     # CTA), 1280 the Kinetics-600 window's (a full tile and 32 rows)
     # B 16 at L 1024 is the rollout of ``cli.py generate`` (phase 12): a valid
-    # batch of 16 clips
+    # batch of 16 clips; L 2048 the layout rollout's window (phase 13: 16
+    # frames of 64 frame and 64 layout tokens)
     nh, hd = 16, 64
     pos_t = torch.zeros(1, dtype=torch.int32, device="cuda")
     worst, shapes = 0.0, []
     for b, length, checked, timed in ((2, 1024, (0, 63, 64, 511, 1023), (63, 511, 1023)),
                                       (2, 1152, (0, 1023, 1055, 1151), (1151,)),
                                       (2, 1280, (0, 1151, 1279), (1279,)),
-                                      (16, 1024, (0, 511, 1023), (1023,))):
+                                      (16, 1024, (0, 511, 1023), (1023,)),
+                                      (2, 2048, (0, 1023, 1151, 2047), (2047,))):
         q = torch.randn(b, nh, hd, device="cuda", generator=g).bfloat16()
         kc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
         vc = torch.randn(b, nh, length, hd, device="cuda", generator=g).bfloat16()
@@ -1739,15 +1744,43 @@ def _ae_batches(cfg, n, kinds=("img", "vid")):
                   if k in kinds else None for k in ("img", "vid")) for i in range(n)]
 
 
-def _ae_step(tr, state, kind, mode, batch, fake):
+def _ae_step(tr, state, kind, mode, batch, fake, generator=None):
     if kind == "g":
-        state, m, fake = tr.g_step(state, batch, mode)
+        state, m, fake = tr.g_step(state, batch, mode, generator)
         return state, m, fake, state.gen, state.opt_g
     if kind == "d":
-        state, m = tr.d_step(state, batch, fake, mode)
+        state, m = tr.d_step(state, batch, fake, mode, generator)
     else:
-        state, m = tr.r1_step(state, batch, mode)
+        state, m = tr.r1_step(state, batch, mode, generator)
     return state, m, fake, state.disc, state.opt_d
+
+
+def ada_cpu_draws(generator, img, p):
+    """ADA with the numbers drawn on the CPU from a generator seeded as
+    ``generator`` and moved to ``img``'s device: the card and the CPU then
+    augment alike (a ``torch.Generator`` draws other numbers on the card)."""
+    import torch
+    from ccvs_tpu_torch.train import ada
+
+    g = torch.Generator().manual_seed(generator.initial_seed())
+    b = img.shape[0]
+    draws = tuple({k: v.to(img.device) for k, v in d.items()}
+                  for d in (ada.draw_affine(g, b), ada.draw_color(g, b)))
+    return ada.augment(None, img, p, draws=draws)
+
+
+def ada_rule(acfg, p, r_t, n):
+    """The D step's controller on the host: ``p`` moved by the sign of
+    ``r_t - ada_target`` (``r_t = mean(sign(D(real)))``), ``n / ada_length``
+    for ``n`` real images, clipped to [0, 1]."""
+    step = (r_t > acfg.ada_target) - (r_t < acfg.ada_target)
+    return min(max(p + step * n / acfg.ada_length, 0.0), 1.0)
+
+
+def n_real_images(losses, batch_size):
+    """The image discriminator's real images in a batch: those that are no
+    corrupted contexts."""
+    return len(losses.corr_split(batch_size)[0]) if losses.cfg.elastic_corruption else batch_size
 
 
 def _ae_step_check(step):
@@ -1800,7 +1833,7 @@ def _ae_step_passes(res):
             and res["ema"][0] <= 0)
 
 
-def phase_ae_reference(on_step=None):
+def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae small"):
     """(a) The small fp32 configuration: three iterations of the six steps
     (G, D, R1 for images and for video; R1 every 2) free-running on the
     card; each step also run on the CPU from the card's state before it
@@ -1816,17 +1849,36 @@ def phase_ae_reference(on_step=None):
     the sign of its gradient flipped (with the update that follows).
     ``on_step(when, it, kind, mode, state_or_step, batch_or_result)``, when
     given, sees each step "before" it runs (the card's state and the CPU
-    batch) and "after" (the step's record and its check)."""
+    batch) and "after" (the step's record and its check); ``after_build()``,
+    when given, runs once the trainers are built.
+
+    ``cfg`` (default :func:`small_ae_config`) with ``use_aug`` runs the steps
+    with ADA on both devices alike (:func:`ada_cpu_draws`, each iteration's
+    generator seeded from ``(seed, it)`` on each device), holds the card's
+    ``ada_p`` after each image D step to the CPU's and to the controller's
+    rule (:func:`ada_rule`), and takes the G steps' gradient floor in the
+    image D and R1 steps too: they run the augmentation's bilinear warp."""
     import copy
 
     import torch
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+    from ccvs_tpu_torch.train.states import iteration_generator
+    from ccvs_tpu_torch.train.steps import make_ae_steps
 
-    cfg = small_ae_config()
+    cfg = cfg or small_ae_config()
+    use_aug = cfg.ae.use_aug
     cpu = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cpu")
     cpu.init_params()
     gpu = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cuda")
     gpu.losses.vgg.load_state_dict(cpu.losses.vgg.state_dict())
+    if use_aug:
+        for tr in (cpu, gpu):
+            tr.init_state, tr.g_step, tr.d_step, tr.r1_step = make_ae_steps(
+                tr.losses, aug_fn=ada_cpu_draws)
+    if after_build is not None:
+        after_build()
+    floors = {**GRAD_FLOOR, **({("d", "img"): 1e-3, ("r1", "img"): 1e-3} if use_aug else {})}
+    ada_p = []
     cstate, gstate = cpu.init_state(), gpu.init_state()
     gstate.load_state_dict(cstate.state_dict())
     ties = []
@@ -1842,6 +1894,8 @@ def phase_ae_reference(on_step=None):
     for it, (bi, bv) in enumerate(_ae_batches(cfg, 3)):
         batch = {dev: {"img": to_device(bi, dev), "vid": to_device(bv, dev)}
                  for dev in ("cpu", "cuda")}
+        gens = {dev: iteration_generator(cfg.seed, it, dev) if use_aug else None
+                for dev in ("cpu", "cuda")}
         fake = {}
         for kind, mode in AE_STEPS:
             if kind == "r1" and it % cfg.ae.d_reg_every:
@@ -1859,11 +1913,22 @@ def phase_ae_reference(on_step=None):
                                               for k, v in fake[mode].items()}
             if on_step is not None:
                 on_step("before", it, kind, mode, gstate, batch["cpu"][mode])
+            p0 = float(gstate.ada_p)
             gstate, gm, gfake, gmod, gopt = _ae_step(gpu, gstate, kind, mode,
-                                                     batch["cuda"][mode], fake.get(mode))
+                                                     batch["cuda"][mode], fake.get(mode),
+                                                     gens["cuda"])
             cstate, cm, _, cmod, copt = _ae_step(cpu, cstate, kind, mode, batch["cpu"][mode],
-                                                 cfake)
+                                                 cfake, gens["cpu"])
             fake[mode] = gfake
+            if use_aug and (kind, mode) == ("d", "img"):
+                # the rule on the card's own scores: D of its augmented reals
+                want = ada_rule(cfg.ae, p0, float(gm["rt_stat"]),
+                                n_real_images(gpu.losses, bi["img"].shape[0]))
+                got = (float(gstate.ada_p), float(cstate.ada_p))
+                if abs(got[0] - want) > 1e-7 or got[0] != got[1]:
+                    raise AssertionError(f"{label}: ada_p after the D step of iteration {it}: "
+                                         f"card {got[0]}, CPU {got[1]}, the rule {want}")
+                ada_p.append(got[0])
             step = {
                 "metrics": (cm, gm), "group": copt.opt.param_groups[0], "count": copt.count,
                 "cgrad": {n: p.grad for n, p in cmod.named_parameters()},
@@ -1871,7 +1936,7 @@ def phase_ae_reference(on_step=None):
                 "before": before, "after": dict(gmod.named_parameters()),
                 "v": {n: gopt.opt.state[p]["exp_avg_sq"] for n, p in gmod.named_parameters()},
                 "ema": None, "ema_decay": cfg.ae.ema_decay,
-                "floor": GRAD_FLOOR.get((kind, mode), GRAD_FLOOR_DEFAULT)}
+                "floor": floors.get((kind, mode), GRAD_FLOOR_DEFAULT)}
             if ema0 is not None:
                 step["ema"] = {n: (ema0[n], e) for n, e in gstate.ema.named_parameters()}
             res = _ae_step_check(step)
@@ -1883,17 +1948,17 @@ def phase_ae_reference(on_step=None):
                 g_losses.append(round(float(cm["g_loss"]), 5))
             for k in worst:
                 worst[k] = max(worst[k], res[k])
-            log(f"    train ae small {it} {kind} {mode}: metrics within {res['metrics']:.3g} "
+            log(f"    {label} {it} {kind} {mode}: metrics within {res['metrics']:.3g} "
                 f"relative, gradients at {res['grads'][0]:.3g} of their tolerance "
                 f"({res['grads'][1]}), within {res['grad_err'][0]:.3g} of the step's largest "
                 f"({res['grad_err'][1]}); excess of the update {res['update'][0]:.3g} "
                 f"({res['update'][1]}), of the EMA {res['ema'][0]:.3g}")
     hook.remove()
     if not _ae_step_passes(worst):
-        raise AssertionError(f"train ae small: the card differs from the CPU beyond the "
+        raise AssertionError(f"{label}: the card differs from the CPU beyond the "
                              f"tolerances: {worst}")
     if len(ties) != 6:
-        raise AssertionError(f"train ae small: K1 checked {len(ties)} times, expected 6")
+        raise AssertionError(f"{label}: K1 checked {len(ties)} times, expected 6")
     # planted faults in the last step, on its parameter of smallest gradient:
     # its update's sign flipped; its gradient's sign flipped, with the
     # update and second moment that Adam makes of it
@@ -1907,8 +1972,8 @@ def phase_ae_reference(on_step=None):
                    v={**step["v"], name: v})
     caught = [_ae_step_check(s) for s in (flipped, negated)]
     if any(_ae_step_passes(r) for r in caught):
-        raise AssertionError(f"train ae small: a planted fault in {name} passed the check")
-    log(f"train ae small: 3 iterations ({n_steps} steps) free-running on the card, each step "
+        raise AssertionError(f"{label}: a planted fault in {name} passed the check")
+    log(f"{label}: 3 iterations ({n_steps} steps) free-running on the card, each step "
         f"held to the CPU's from the card's state: metrics within {worst['metrics']:.3g} "
         f"relative (tolerance 1e-4), gradients at most {worst['grads'][0]:.3g} of their "
         f"tolerance ({worst['grads'][1]}; {GRAD_TOL} of their own largest entry or "
@@ -1919,11 +1984,15 @@ def phase_ae_reference(on_step=None):
         f"{worst['update'][0]:.3g}), EMA that of the new parameters (excess "
         f"{worst['ema'][0]:.3g}); K1's indices the plain search's in all 6 G steps "
         f"({sum(ties)} near-ties); terms {sorted(keys)}")
-    log(f"train ae small: planted faults in {name} (largest gradient "
+    if use_aug:
+        log(f"{label}: ada_p after each image D step {ada_p}, the card's equal to the CPU's "
+            f"and to the controller's rule")
+    log(f"{label}: planted faults in {name} (largest gradient "
         f"{float(step['cgrad'][name].abs().max()):.3g}) caught: its update's sign flipped "
         f"(excess {caught[0]['update'][0]:.3g}), its gradient's sign flipped ("
         f"{caught[1]['grads'][0]:.3g} of its tolerance)")
-    log(f"train ae small: g_loss by G step {g_losses}")
+    log(f"{label}: g_loss by G step {g_losses}")
+    return ada_p
 
 
 def phase_ae_bairhd(records, card):
@@ -2513,6 +2582,403 @@ def phase_generate(records, card):
     phase_generate_bairhd(records, card)
 
 
+# ---------------- phase 13: ADA and layouts ----------------
+
+
+def ada_checks():
+    """(a) ADA's pieces on the card against the CPU in fp32, on the same
+    draws: the warp (``apply_affine``), the colour matrix and ``augment``
+    within 1e-5; R1 through the augmentation for a small discriminator
+    ``D(x) = sum(softplus(aug(x) * v))``: the input gradient and the
+    gradient of its squared norm with respect to ``v`` (a second
+    derivative through the warp) within 1e-4 of their largest entry (sums
+    in no fixed order on the card); a planted fault, the downsampling's
+    wavelet left unflipped, caught."""
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.train import ada
+
+    g = torch.Generator().manual_seed(11)
+    b, h, w = 4, 32, 24
+    img = torch.rand(b, h, w, 3, generator=g) * 2 - 1
+    v = torch.randn(1, h, w, 3, generator=g)
+    draws = (ada.draw_affine(g, b), ada.draw_color(g, b))
+
+    def on(dev):
+        return tuple({k: x.to(dev) for k, x in d.items()} for d in draws)
+
+    def run(dev):
+        d = on(dev)
+        G = torch.linalg.inv(ada.build_affine(d[0], 0.8, h, w))
+        C = ada.build_color(d[1], 0.8)
+        x = img.to(dev).requires_grad_()
+        vv = v.to(dev).requires_grad_()
+        score = F.softplus(ada.augment(None, x, 0.8, draws=d) * vv).sum()
+        (gx,) = torch.autograd.grad(score, x, create_graph=True)
+        (gv,) = torch.autograd.grad((gx ** 2).sum(), vv)
+        return {"apply_affine": ada.apply_affine(img.to(dev), G),
+                "apply_color": ada.apply_color(img.to(dev), C),
+                "augment": ada.augment(None, img.to(dev), 0.8, draws=d),
+                "r1 input gradient": gx, "r1 second derivative": gv}
+
+    cpu, card = run("cpu"), run("cuda")
+    errs = {k: float((card[k].detach().double().cpu() - cpu[k].detach().double()).abs().max()
+                     / cpu[k].detach().abs().max()) for k in cpu}
+    # the derivatives are sums, in no fixed order on the card, of the
+    # transposed bilinear sample's scattered weights and the 12-tap passes'
+    bounds = {k: 1e-4 if k.startswith("r1") else 1e-5 for k in errs}
+    bad = {k: e for k, e in errs.items() if not e <= bounds[k]}
+    if bad:
+        raise AssertionError(f"ada: on the card off the CPU's by {bad} of the largest entry "
+                             f"(bounds {bounds})")
+    # planted fault: the downsampling pass with the wavelet unflipped
+    orig = ada.upfirdn2d
+
+    def unflipped(x, k, up=1, down=1, pad=(0, 0)):
+        return orig(x, torch.flip(k, (0, 1)) if down != 1 else k, up, down, pad)
+
+    ada.upfirdn2d = unflipped
+    try:
+        bad = ada.augment(None, img.cuda(), 0.8, draws=on("cuda")).double().cpu()
+    finally:
+        ada.upfirdn2d = orig
+    planted = float((bad - cpu["augment"].double()).abs().max()
+                    / cpu["augment"].abs().max())
+    if planted <= 1e-5:
+        raise AssertionError(f"ada: the planted fault (unflipped sym6) passed ({planted:.3g})")
+    log(f"ada small: card against CPU on the same draws, of the largest entry: "
+        + ", ".join(f"{k} {e:.3g} (bound {bounds[k]})" for k, e in errs.items())
+        + f"; the planted fault (the down pass's sym6 unflipped) off by "
+        f"{planted:.3g}: caught")
+
+
+def small_layout_config():
+    """Phase 13 (a)'s layout configuration: phase 6's autoencoder widths at
+    8 px with the shared-decoder layout twins (2 classes), a 2-layer GPT
+    with K2's head size (2 heads of 64) whose control stream is 16 layout
+    tokens a frame, greedy (``top_k`` 1 for frames and layouts)."""
+    from ccvs_tpu_torch.config import AutoencoderConfig, Config, TransformerConfig
+
+    ae = AutoencoderConfig(
+        necf=8, necf_mult=(1, 2), ndcf=8, ndcf_mult=(1, 2), z_size=16, z_num=32, z_shape=(4, 4),
+        max_dim=8, inter_p=0.5, skip_memory=3, skip_context=(1, 2, 3), use_layout=True,
+        layout_size=2, same_decoder_layout=True)
+    gpt = TransformerConfig(
+        z_num=32, z_len=96, z_chunk=32, num_blocks=3, cond_len=16, n_layer=2, n_head=2,
+        n_embd=128, z_shape=(4, 4), top_k=1, top_k_state=1, sample_state=True, layout=True,
+        state_num=32, state_size=16)
+    return Config(name="layout_small", ae=ae, gpt=gpt)
+
+
+def layout_checks():
+    """(a) The layout twins on the card against the CPU in fp32, from one
+    seeded init made on the CPU: ``decode_video_layout`` on given tokens
+    (re-encoding its own layouts, and with the given layouts' features),
+    frames within 1e-3 and layouts equal; greedy ``generate(layout=...)``
+    with the rec rollout: frame and layout tokens equal, ``fake`` and
+    ``rec`` within 1e-3, ``fake_layout`` and ``rec_layout`` equal."""
+    import torch
+    from ccvs_tpu_torch.generate import VideoGenerator
+    from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+
+    cfg = small_layout_config()
+    models = {}
+    for dev in ("cpu", "cuda"):
+        ae = FrameAutoencoder(cfg.ae, dtype=torch.float32, device=dev)
+        tr = TokenTransformer(cfg.gpt, dtype=torch.float32, device=dev)
+        models[dev] = (ae, tr, VideoGenerator(cfg, ae, tr))
+    models["cpu"][0].init(seed=0)
+    models["cpu"][1].init(seed=1)
+    for i in range(2):
+        models["cuda"][i].load_state_dict(models["cpu"][i].state_dict())
+    g = torch.Generator().manual_seed(12)
+    vid = torch.rand(2, 3, 8, 8, 3, generator=g) * 2 - 1
+    lay = (vid.mean(-1) > 0).long()
+    codes, lcodes = torch.randint(0, 32, (2, 3, 16), generator=g), torch.randint(0, 32, (2, 3, 16),
+                                                                                 generator=g)
+    out = {}
+    for dev, (ae, tr, gen) in models.items():
+        interl = [f[:, 1:] for f in ae.encode_layout(lay.to(dev))["inter"]]
+        out[dev] = {"free": ae.decode_video_layout(codes.to(dev), lcodes.to(dev),
+                                                   vid[:, :1].to(dev), lay[:, :1].to(dev)),
+                    "given": ae.decode_video_layout(codes.to(dev), lcodes.to(dev),
+                                                    vid[:, :1].to(dev), lay[:, :1].to(dev),
+                                                    interl_gen=interl),
+                    "gen": gen.generate(vid.to(dev), torch.Generator(device=dev).manual_seed(0),
+                                        layout=lay.to(dev))}
+    err = 0.0
+    for k in ("free", "given"):
+        (cv, cl), (gv, gl) = out["cpu"][k], out["cuda"][k]
+        err = max(err, float((gv.cpu() - cv).abs().max()))
+        if not torch.equal(gl.float().argmax(-1).cpu(), cl.argmax(-1)):
+            raise AssertionError(f"layout small: decode_video_layout ({k}) layouts differ")
+    c, d = out["cpu"]["gen"], out["cuda"]["gen"]
+    for k in ("code", "state_code", "fake_layout", "rec_layout"):
+        if not torch.equal(d[k].cpu(), c[k]):
+            raise AssertionError(f"layout small: generate's {k} differs on the card")
+    for k in ("fake", "rec"):
+        err = max(err, float((d[k].cpu() - c[k]).abs().max()))
+    if not err <= 1e-3:
+        raise AssertionError(f"layout small: frames off the CPU's by {err:.3g} (bound 1e-3)")
+    log(f"layout small: decode_video_layout (re-encoded and given layouts) and greedy "
+        f"generate(layout=...) with its rec rollout on the card as on the CPU: tokens, layout "
+        f"tokens and decoded layouts equal, frames within {err:.3g} (bound 1e-3)")
+
+
+def phase_ada_reference():
+    """(a) One ADA configuration of phase 11 (a): the small autoencoder with
+    the adaptive probability raised each image D step (a target below any
+    statistic; 4 real images of ``ada_length`` 10: 0.4, 0.8, then 1), three
+    iterations held step by step to the CPU (:func:`phase_ae_reference`)."""
+    p = phase_ae_reference(cfg=small_ae_config(use_aug=True, aug_p=0.0, ada_target=-1.5,
+                                               ada_length=10), label="train ada small")
+    if p != [0.4, 0.8, 1.0] and [round(x, 6) for x in p] != [0.4, 0.8, 1.0]:
+        raise AssertionError(f"train ada small: ada_p {p}, expected 0.4, 0.8, 1.0")
+
+
+def _ada_iterations(tr, state, img, vid, its):
+    """``tr.iteration``'s steps one by one at iterations ``its`` (each with
+    its ``(seed, it)`` generator): per iteration the wall time (host,
+    synchronized), the split by step (CUDA events), the losses, and
+    ``(ada_p before the image D step, after it, rt_stat)``."""
+    import torch
+    from ccvs_tpu_torch.train.states import iteration_generator
+
+    acfg = tr.cfg.ae
+    rows = []
+    for it in its:
+        gen = iteration_generator(tr.cfg.seed, it, "cuda")
+        fake, ms, split = {}, {}, {}
+        w0 = time.perf_counter()
+        for kind, mode in AE_STEPS:
+            if kind == "r1" and it % acfg.d_reg_every:
+                continue
+            p0 = float(state.ada_p) if (kind, mode) == ("d", "img") else None
+            e0, e1 = _events()
+            e0.record()
+            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                  img if mode == "img" else vid, fake.get(mode),
+                                                  gen)
+            e1.record()
+            split[f"{kind} {mode}"] = (e0, e1)
+            ms.update(m)
+            if p0 is not None:
+                ada = (p0, float(state.ada_p), float(m["rt_stat"]))
+        state.step = it + 1
+        torch.cuda.synchronize()
+        rows.append({"it": it, "wall": time.perf_counter() - w0, "ada": ada,
+                     "split": {k: a.elapsed_time(b) for k, (a, b) in split.items()},
+                     "losses": {k: float(v) for k, v in ms.items()}})
+    return state, rows
+
+
+def _check_ada_rows(label, tr, rows, n_real):
+    for r in rows:
+        p0, p1, r_t = r["ada"]
+        want = ada_rule(tr.cfg.ae, p0, r_t, n_real)
+        if abs(p1 - want) > 1e-7:
+            raise AssertionError(f"{label}: ada_p {p0} -> {p1} at iteration {r['it']} (r_t "
+                                 f"{r_t}), the rule gives {want}")
+        bad = [k for k, v in r["losses"].items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label}: non-finite {bad} at iteration {r['it']}")
+
+
+def phase_ada_bairhd(records, card):
+    """(b) ADA at full BAIR-256 width: phase 11 (b)'s configuration with
+    ``use_aug`` and the adaptive probability, 2 warm-up and 3 timed
+    iterations (the last with R1) on one fixed batch pair; K1 exactly 2
+    launches an iteration, ``ada_p`` after each D step the controller's
+    rule of the card's own statistic. Then the repo's trained configuration
+    ``runs_r5/r5_bair_eval_config.json`` as it is (64 px, the video
+    discriminator, ADA, its batch of 24 images and 4 clips), 3 iterations
+    (the first with R1)."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import Config, bairhd_config
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    base = bairhd_config()
+    cfg = base.replace(name="train_ada_bairhd",
+                       data=dataclasses.replace(base.data, dataset="synthetic", batch_size_img=24,
+                                                batch_size_vid=4),
+                       ae=dataclasses.replace(base.ae, use_aug=True, aug_p=0.0))
+    torch.cuda.empty_cache()
+    (bi, bv), = _ae_batches(cfg, 1)
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+    n_real = n_real_images(tr.losses, img["img"].shape[0])
+    torch.cuda.reset_peak_memory_stats()
+    state, warm = _ada_iterations(tr, state, img, vid, [1, 2])
+    vq_indices.launches = 0
+    state, rows = _ada_iterations(tr, state, img, vid, [3, 4, 16])
+    launches = vq_indices.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 2 * 3:
+        raise AssertionError(f"train ada bairhd: K1 launched {launches} times in 3 iterations "
+                             "(expected 6)")
+    records["vq_argmin"]["launches_by_rollout"]["train_ada_bairhd (3 iterations)"] = launches
+    _check_ada_rows("train ada bairhd", tr, warm + rows, n_real)
+    plain = statistics.median([r["wall"] for r in rows if r["it"] % 16])
+    log(f"train ada bairhd: ADA (adaptive p) at full BAIR-256 width, 24 images and 4 clips of 4 "
+        f"frames: without R1 median {plain:.4f} s an iteration, with R1 {rows[-1]['wall']:.4f} s "
+        f"(host clock, synchronized; phase 11 (b) without ADA: 1.3138 / 1.8508 s, PR 10); peak "
+        f"memory {peak:.2f} GiB; K1 {launches} launches in 3 iterations; ada_p after each D "
+        f"step {[round(r['ada'][1], 6) for r in warm + rows]} (rt_stat "
+        f"{[r['ada'][2] for r in warm + rows]}, {n_real} real images, the rule's); on {card}")
+    for name in rows[-1]["split"]:
+        vals = [r["split"][name] for r in rows if name in r["split"]]
+        log(f"    {name}: median {statistics.median(vals):9.2f} ms (CUDA events, {len(vals)} "
+            "iterations)")
+    del tr, state, img, vid
+    torch.cuda.empty_cache()
+
+    cfg = Config.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs_r5",
+                                   "r5_bair_eval_config.json"))
+    t0 = time.perf_counter()
+    (bi, bv), = _ae_batches(cfg, 1)
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+    vq_indices.launches = 0
+    state, rows = _ada_iterations(tr, state, img, vid, [0, 1, 2])
+    if vq_indices.launches != 2 * 3:
+        raise AssertionError(f"train ada r5_bair: K1 launched {vq_indices.launches} times in 3 "
+                             "iterations (expected 6)")
+    _check_ada_rows("train ada r5_bair", tr, rows, n_real_images(tr.losses, img["img"].shape[0]))
+    log(f"train ada r5_bair: runs_r5/r5_bair_eval_config.json as it is ({cfg.ae.max_dim} px, "
+        f"use_dv {cfg.ae.use_dv}, ADA aug_p {cfg.ae.aug_p}, image batch "
+        f"{tuple(img['img'].shape)}, clips {tuple(vid['vid'].shape)}): iterations "
+        f"{[round(r['wall'], 4) for r in rows]} s (the first with R1 and the first calls; set-up "
+        f"{time.perf_counter() - t0 - sum(r['wall'] for r in rows):.1f} s), ada_p "
+        f"{[round(r['ada'][1], 8) for r in rows]}, K1 6 launches")
+
+
+def bairhd_layout_config():
+    """Phase 13 (c)'s configuration: ``bairhd_config()`` with the autoencoder's
+    shared-decoder layout twins over the synthetic moving squares' 2
+    classes, and layout tokens (64 a frame, the layout codebook's 1024) as
+    the GPT's control stream: its window holds 16 frames of 128 tokens."""
+    import dataclasses
+
+    from ccvs_tpu_torch.config import bairhd_config
+
+    base = bairhd_config("bairhd_layout")
+    return base.replace(
+        ae=dataclasses.replace(base.ae, use_layout=True, same_decoder_layout=True, layout_size=2),
+        gpt=dataclasses.replace(base.gpt, layout=True, state_num=1024, state_size=64,
+                                z_len=2048, z_chunk=128, sample_state=True),
+        data=dataclasses.replace(base.data, dataset="synthetic", load_layout=True,
+                                 batch_size_img=24, batch_size_vid=4))
+
+
+def phase_layout_bairhd(records, card):
+    """(c) Layouts at full BAIR-256 width (:func:`bairhd_layout_config`):
+    one rollout at batch 2, 16 frames from 1 context frame, bf16, sampled
+    layouts past the context (a 2-frame warm-up, then the 16-frame run timed
+    with its launches counted: K1 4, K2 24 x 1920); one transformer step on
+    2 clips of 16 frames with their layout tokens (K1 2: the frames' and
+    the layouts' encodes); one autoencoder iteration with layouts at 24
+    images and 4 clips (K1 4: the image and layout quantizers of both G
+    steps), each after one warm-up."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.data import create_dataset, group_collate
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    cfg = bairhd_layout_config()
+    torch.cuda.empty_cache()
+    ae, tr, gen = build_models(cfg)
+    ds = create_dataset(cfg.data, phase="valid", load_vid=True)
+    batch = to_device(group_collate([ds[0], ds[1]]), "cuda")
+    vid, lay = batch["vid"], batch["layout"]
+    assert vid.shape == (BATCH, VID_LEN, 256, 256, 3) and lay.shape == (BATCH, VID_LEN, 256, 256)
+    t0 = time.perf_counter()
+    gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
+                 layout=lay[:, :2])
+    warm = _synced_since(t0)
+    tpf = cfg.ae.tokens_per_frame + cfg.gpt.state_size
+    steps = (VID_LEN - 1) * tpf
+    out, dt = run_path(records, card, cfg, gen, vid, 1, 4, steps, layout=lay,
+                       name="bairhd_layout")
+    fl = out["fake_layout"]
+    if fl.shape != lay.shape or not bool(((fl == 0) | (fl == 1)).all()):
+        raise AssertionError(f"bairhd_layout: fake_layout {tuple(fl.shape)} not 2-class maps")
+    if not torch.equal(out["state_code"][:, :cfg.gpt.state_size],
+                       ae.encode_layout(lay[:, :1])["code"].reshape(BATCH, -1)):
+        raise AssertionError("bairhd_layout: the context frame's layout tokens were not kept")
+    log(f"bairhd_layout: 2-frame warm-up {warm:.3f} s; the timed rollout's {steps} decode steps "
+        f"{1e3 * dt / steps:.2f} ms each; fake_layout's squares cover "
+        f"{100 * float(fl.float().mean()):.2f} % (the real layouts' "
+        f"{100 * float(lay.float().mean()):.2f} %)")
+
+    # one transformer step on layout tokens: 2 clips (a window of 2048
+    # tokens holds 4x the attention of the 1024-token step of phase 10)
+    tt = TransformerTrainer(cfg, ae)
+    tstate = tt.init_state()
+    for i in range(2):
+        vq_indices.launches = 0
+        t0 = time.perf_counter()
+        tb = tt.encode_batch({"vid": vid, "layout": lay})
+        tstate, m = tt.step(tstate, tb)
+        dt = _synced_since(t0)
+        if vq_indices.launches != 2:
+            raise AssertionError(f"layout transformer step: K1 launched {vq_indices.launches} "
+                                 "times (expected 2)")
+    if not all(math.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"layout transformer step: non-finite metrics {m}")
+    n_tok = BATCH * (VID_LEN * tpf - 1)
+    records["vq_argmin"]["launches_by_rollout"]["layout transformer step"] = 2
+    log(f"layout transformer step: 2 clips x 16 frames x 128 tokens, one step {dt:.4f} s "
+        f"(after one warm-up) = {n_tok / dt:.0f} tokens/s; nll {float(m['nll']):.4f}, "
+        f"state_nll (layouts) {float(m['state_nll']):.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 2 launches")
+    del ae, tr, gen, tt, tstate, tb
+    torch.cuda.empty_cache()
+
+    (bi, bv), = _ae_batches(cfg, 1)
+    atr = FrameAutoencoderTrainer(cfg)
+    atr.init_params()
+    astate = atr.init_state()
+    img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+    assert img["layout"].shape == (24, 256, 256) and vid["layout"].shape == (4, 4, 256, 256)
+    torch.cuda.reset_peak_memory_stats()
+    for it in (1, 2):
+        vq_indices.launches = 0
+        t0 = time.perf_counter()
+        astate, gm, dm, _ = atr.iteration(astate, it, img, vid)
+        dt = _synced_since(t0)
+        if vq_indices.launches != 4:
+            raise AssertionError(f"layout AE iteration: K1 launched {vq_indices.launches} times "
+                                 "(expected 4)")
+    terms = {k: round(float(v), 4) for k, v in gm.items() if "layout" in k}
+    if set(terms) != {"layout_quant_img", "layout_img", "layout_quant_vid", "layout_vid"} or \
+            not all(math.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"layout AE iteration: layout terms {terms}")
+    records["vq_argmin"]["launches_by_rollout"]["layout AE iteration"] = 4
+    log(f"layout AE iteration: 24 images and 4 clips of 4 frames with layouts, one iteration "
+        f"without R1 {dt:.4f} s (after one warm-up); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 4 launches; layout terms "
+        f"{terms}; on {card}")
+
+
+def phase_ada_layouts(records, card):
+    random.seed(0)
+    ada_checks()
+    phase_ada_reference()
+    layout_checks()
+    phase_ada_bairhd(records, card)
+    phase_layout_bairhd(records, card)
+
+
 # ---------------- tracing a gradient difference to its kinks ----------------
 
 
@@ -2734,6 +3200,294 @@ def trace_kink(seed=6, card="cuda"):
     return out
 
 
+FP32_FLAGS = ("torch.backends.fp32_precision", "torch.backends.cudnn.fp32_precision",
+              "torch.backends.cudnn.conv.fp32_precision",
+              "torch.backends.cuda.matmul.fp32_precision", "torch.backends.cudnn.allow_tf32",
+              "torch.backends.cuda.matmul.allow_tf32", "torch.backends.cudnn.deterministic",
+              "torch.backends.cudnn.benchmark")
+
+
+def fp32_flags():
+    """PyTorch's fp32 precision settings, by name (None where this PyTorch
+    has no such attribute)."""
+    import functools
+
+    import torch
+
+    out = {}
+    for name in FP32_FLAGS:
+        try:
+            out[name] = functools.reduce(getattr, name.split(".")[1:], torch)
+        except AttributeError:
+            out[name] = None
+    return out
+
+
+def fp32_setting(name):
+    """Applies one of the fp32 settings fault 4's trace compares: ``port``
+    (what ``resolve_device`` sets), ``ieee`` (cuDNN's convolutions and the
+    matrix products asked for IEEE fp32 by the per-operation precision
+    settings), ``deterministic`` (``port`` with cuDNN restricted to
+    deterministic algorithms, no benchmarking), ``nocudnn`` (``port`` with
+    cuDNN off: PyTorch's own CUDA convolutions)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = name == "deterministic"
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.enabled = name != "nocudnn"
+    if name == "ieee":
+        torch.backends.cudnn.conv.fp32_precision = "ieee"
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+
+
+def conv_precision_probe():
+    """One fp32 convolution, its input and weight gradients and one fp32
+    matrix product on the card under each of :func:`fp32_setting`'s
+    settings, against float64 on the CPU: the largest error over the
+    largest entry. TF32 keeps 10 mantissa bits (~5e-4 a rounding), IEEE
+    fp32 23."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 64, 32, 32, generator=g)
+    w = torch.randn(64, 64, 3, 3, generator=g)
+    dy = torch.randn(8, 64, 32, 32, generator=g)
+    a, b = torch.randn(512, 512, generator=g), torch.randn(512, 512, generator=g)
+
+    def run(dev, dtype):
+        xx = x.to(dev, dtype).requires_grad_()
+        ww = w.to(dev, dtype).requires_grad_()
+        y = F.conv2d(xx, ww, padding=1)
+        gx, gw = torch.autograd.grad(y, (xx, ww), dy.to(dev, dtype))
+        return [t.detach().double().cpu() for t in (y, gx, gw, a.to(dev, dtype) @ b.to(dev, dtype))]
+
+    log(f"fault4 probe: torch {torch.__version__}, CUDA {torch.version.cuda}, cuDNN "
+        f"{torch.backends.cudnn.version()}, {card_line()}")
+    ref = run("cpu", torch.float64)
+
+    def errs(got):
+        return [float((u - r).abs().max() / r.abs().max()) for u, r in zip(got, ref)]
+
+    out = {"cpu": errs(run("cpu", torch.float32))}
+    for name in ("port", "ieee", "deterministic", "nocudnn"):
+        fp32_setting(name)
+        out[name] = errs(run("cuda", torch.float32))
+        out[name + " flags"] = fp32_flags()
+    fp32_setting("port")
+    for k, v in out.items():
+        if not k.endswith("flags"):
+            log(f"fault4 probe {k}: conv {v[0]:.3g}, its input gradient {v[1]:.3g}, its weight "
+                f"gradient {v[2]:.3g}, matmul {v[3]:.3g} (largest error over largest entry "
+                "against float64)")
+        else:
+            log(f"fault4 probe {k}: {v}")
+    return out
+
+
+def trace_ops(seed=6, setting="port", card="cuda"):
+    """Fault 4's trace, operation by operation: phase 11 (a) at data seed
+    ``seed`` records the card's state and batch before iteration 0's video G
+    step; that step's loss and gradient are then run once more on the card
+    under ``setting`` (:func:`fp32_setting`), recording every PyTorch
+    operation's inputs and outputs (a ``TorchDispatchMode``); each operation
+    is replayed on the CPU from the card's inputs in fp32 and in float64.
+    Per operation, the card's and the CPU's largest error over the largest
+    entry of the float64 result; printed: the operations in order of the
+    card's error, and the first whose card error exceeds 1e-5 and 20 times
+    the CPU's."""
+    import collections
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
+
+    random.seed(seed)
+    snap = {}
+
+    def on_step(when, it, kind, mode, a, b):
+        if when == "before" and (it, kind, mode) == (0, "g", "vid"):
+            snap["sd"], snap["batch"] = _to_cpu(a.state_dict()), _to_cpu(b)
+
+    try:
+        phase_ae_reference(on_step)
+    except AssertionError as e:
+        log(f"fault4 trace: phase 11 (a) at data seed {seed} fails: {str(e)[:300]}")
+    cfg = small_ae_config()
+    cpu = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device="cpu")
+    tr = FrameAutoencoderTrainer(cfg, dtype=torch.float32, device=card)
+    tr.losses.vgg.load_state_dict(cpu.losses.vgg.state_dict())
+    fp32_setting(setting)
+    state = tr.init_state()
+    state.load_state_dict(snap["sd"])
+    batch = {k: v.to(card) for k, v in snap["batch"].items()}
+    records = []
+
+    def host(t):
+        return t.detach().cpu().clone() if torch.is_tensor(t) else t
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            before = (tree_map(host, args), tree_map(host, kwargs))
+            out = func(*args, **kwargs)
+            records.append((func, *before, tree_map(host, out)))
+            return out
+
+    params = list(state.gen.parameters())
+    with Record():
+        loss, _ = tr.losses.vid_generator_loss(batch, None)
+        torch.autograd.grad(loss, params, allow_unused=True)
+    fp32_setting("port")
+
+    def floats(tree):
+        return [t for t in (tree if isinstance(tree, (list, tuple)) else [tree])
+                if torch.is_tensor(t) and t.is_floating_point()]
+
+    def widen(t):
+        return t.double() if torch.is_tensor(t) and t.dtype == torch.float32 else t
+
+    # per operation: count, the card's and the CPU's largest error over the
+    # largest entry, and over each entry's own size (floored at 1e-3 of the
+    # largest entry)
+    by_op = collections.defaultdict(lambda: [0, 0.0, 0.0, 0.0, 0.0])
+    first = first_entry = None
+    for i, (func, args, kwargs, out) in enumerate(records):
+        outs = floats(out)
+        if not outs or not any(torch.is_tensor(t) and t.is_floating_point()
+                               for t in torch.utils._pytree.tree_leaves((args, kwargs))):
+            continue
+        try:
+            c32 = floats(func(*tree_map(host, args), **tree_map(host, kwargs)))
+            c64 = floats(func(*tree_map(widen, args), **tree_map(widen, kwargs)))
+        except (RuntimeError, TypeError, NotImplementedError):
+            continue
+        if len(c32) != len(outs) or len(c64) != len(outs):
+            continue
+        e_card = e_cpu = r_card = r_cpu = 0.0
+        for o, a, r in zip(outs, c32, c64):
+            if o.shape != r.shape or r.numel() == 0:
+                continue
+            a, r = a.cpu(), r.cpu()
+            scale = float(r.abs().max()) or 1.0
+            own = r.abs().clamp_min(1e-3 * scale)
+            e_card = max(e_card, float((o.double() - r).abs().max()) / scale)
+            e_cpu = max(e_cpu, float((a.double() - r).abs().max()) / scale)
+            r_card = max(r_card, float(((o.double() - r).abs() / own).max()))
+            r_cpu = max(r_cpu, float(((a.double() - r).abs() / own).max()))
+        rec = by_op[str(func)]
+        rec[0] += 1
+        rec[1:] = [max(x, y) for x, y in zip(rec[1:], (e_card, e_cpu, r_card, r_cpu))]
+        shapes = [(tuple(t.shape), str(t.dtype)) for t in torch.utils._pytree.tree_leaves(args)
+                  if torch.is_tensor(t)]
+        others = [a for a in torch.utils._pytree.tree_leaves(args) if not torch.is_tensor(a)]
+        if first is None and e_card > 1e-5 and e_card > 20 * e_cpu:
+            first = {"index": i, "op": str(func), "card": e_card, "cpu": e_cpu,
+                     "inputs": shapes, "args": str(others)[:200]}
+        if first_entry is None and r_card > 1e-4 and r_card > 20 * r_cpu:
+            first_entry = {"index": i, "op": str(func), "card": r_card, "cpu": r_cpu,
+                           "inputs": shapes, "args": str(others)[:200]}
+    ranked = sorted(by_op.items(), key=lambda kv: -kv[1][3])
+    log(f"fault4 trace at seed {seed}, setting {setting}: {len(records)} operations recorded on "
+        f"the card in iteration 0's video G step (loss and gradient), replayed on the CPU")
+    for op, (n, e_card, e_cpu, r_card, r_cpu) in ranked[:15]:
+        log(f"    {op:48s} {n:5d}x  card {e_card:.3g}  cpu {e_cpu:.3g} of the largest entry; "
+            f"card {r_card:.3g}  cpu {r_cpu:.3g} of each entry")
+    log("fault4 trace: first operation off fp32 on the card (of the largest entry): "
+        + json.dumps(first))
+    log("fault4 trace: first operation off fp32 on the card (of each entry): "
+        + json.dumps(first_entry))
+    return first, first_entry
+
+
+def conditioning(seed=6, draws=6, card="cuda"):
+    """How far rounding alone moves phase 11 (a)'s worst video G step
+    gradient at data seed ``seed``: from the card's saved inputs of
+    iteration 0's video G step, the gradient on the card and on the CPU in
+    fp32, in float64, and in float64 and CPU fp32 from the same inputs
+    with every generator parameter multiplied by ``1 + 6e-8 n`` (``n``
+    standard normal: one fp32 rounding's size), ``draws`` times. Prints, for
+    each, the largest difference from float64 over the step's largest
+    entry and the entry that :func:`trace_kink` traced
+    (``decoder.block1.conv2.conv.bias[4]``), as one ``conditioning:`` JSON
+    line."""
+    import contextlib
+    import copy
+
+    import torch
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
+
+    random.seed(seed)
+    snap = {}
+
+    def on_step(when, it, kind, mode, a, b):
+        if when == "before" and (it, kind, mode) == (0, "g", "vid"):
+            snap["sd"], snap["batch"] = _to_cpu(a.state_dict()), _to_cpu(b)
+
+    try:
+        phase_ae_reference(on_step)
+    except AssertionError as e:
+        log(f"conditioning: phase 11 (a) at data seed {seed} fails: {str(e)[:200]}")
+    cfg = small_ae_config()
+    trs = {dev: FrameAutoencoderTrainer(cfg, dtype=torch.float32, device=dev)
+           for dev in (card, "cpu")}
+    tr64 = FrameAutoencoderTrainer(cfg, dtype=torch.float64, device="cpu")
+    for tr in (trs[card], tr64):
+        tr.losses.vgg.load_state_dict(trs["cpu"].losses.vgg.state_dict())
+    none = contextlib.nullcontext()
+
+    def grad(tr, dev, sd, f64=False):
+        return _g_vid_gradient(tr, sd, snap["batch"], dev, none, float64=f64)
+
+    ref = grad(tr64, "cpu", snap["sd"], True)
+    scale = max(float(g.abs().max()) for g in ref.values())
+    name, index = "decoder.block1.conv2.conv.bias", 4
+
+    def gap(g):
+        worst = max((float((g[n] - ref[n]).abs().max()), n) for n in ref)
+        return {"worst": worst[0] / scale, "at": worst[1],
+                "entry": float(g[name].flatten()[index] - ref[name].flatten()[index]) / scale}
+
+    out = {"seed": seed, "step_largest": scale, "entry_float64": float(ref[name].flatten()[index]),
+           "card_fp32": gap(grad(trs[card], card, snap["sd"])),
+           "cpu_fp32": gap(grad(trs["cpu"], "cpu", snap["sd"])), "perturbed": []}
+    for d in range(draws):
+        g = torch.Generator().manual_seed(d)
+        sd = copy.deepcopy(snap["sd"])
+        for k, v in sd["gen"].items():
+            if v.is_floating_point():
+                sd["gen"][k] = v * (1 + 6e-8 * torch.randn(v.shape, generator=g))
+        out["perturbed"].append({"float64": gap(grad(tr64, "cpu", sd, True)),
+                                 "cpu_fp32": gap(grad(trs["cpu"], "cpu", sd))})
+    log("conditioning: " + json.dumps(out))
+    return out
+
+
+def ae_seeds(seeds, setting=None):
+    """Phase 11 (a) at each data seed in ``seeds``, with the fp32 setting
+    ``setting`` of :func:`fp32_setting` applied once the trainers are built
+    (None: as the trainers set it); prints one line a seed and raises if
+    any fails."""
+    failed = []
+    for seed in seeds:
+        random.seed(seed)
+        t0 = time.perf_counter()
+        try:
+            phase_ae_reference(after_build=None if setting is None
+                               else (lambda: fp32_setting(setting)))
+            log(f"ae-seeds: phase 11 (a) passes at data seed {seed}, setting {setting} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        except AssertionError as e:
+            failed.append(seed)
+            log(f"ae-seeds: phase 11 (a) FAILS at data seed {seed}, setting {setting}: "
+                f"{str(e)[:400]}")
+    if failed:
+        raise AssertionError(f"phase 11 (a) failed at data seeds {failed}")
+
+
 def _to_cpu(tree):
     """A copy of a nested state dict with every tensor on the CPU."""
     import copy
@@ -2803,6 +3557,8 @@ def main():
         phase_ae_train(records, card)
     with phase("12 generate and score"):
         phase_generate(records, card)
+    with phase("13 ADA and layouts"):
+        phase_ada_layouts(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2814,5 +3570,20 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["trace-kink"]:
         # python3 chip_smoke.py trace-kink [SEED]: fault 4's trace, see trace_kink
         trace_kink(int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    elif sys.argv[1:2] == ["trace-ops"]:
+        # python3 chip_smoke.py trace-ops [SEED [SETTING]]: see conv_precision_probe, trace_ops
+        conv_precision_probe()
+        trace_ops(int(sys.argv[2]) if len(sys.argv) > 2 else 6,
+                  sys.argv[3] if len(sys.argv) > 3 else "port")
+    elif sys.argv[1:2] == ["conditioning"]:
+        # python3 chip_smoke.py conditioning [SEED]: see conditioning
+        conditioning(int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    elif sys.argv[1:2] == ["ae-seeds"]:
+        # python3 chip_smoke.py ae-seeds [--setting NAME] SEED...: see ae_seeds
+        args = sys.argv[2:]
+        setting = None
+        if args[:1] == ["--setting"]:
+            setting, args = args[1], args[2:]
+        ae_seeds([int(s) for s in args], setting)
     else:
         main()

@@ -441,9 +441,13 @@ def test_ae_trainer_fold_cycler_and_unported_options(tmp_path):
         cfg, dtype=torch.float32, device="cpu").make_loaders()
     assert isinstance(img_loader, FoldCycler) and vid_loader.batch_size == 2
     assert next(iter(img_loader))["img"].shape == (6, 16, 16, 3)
-    for over in (dict(use_layout=True), dict(use_aug=True)):
-        with pytest.raises(NotImplementedError):
-            FrameAutoencoderTrainer(_ae_config(tmp_path, **over), device="cpu")
+    # the options once refused build now: the layout twins and ADA
+    # (tests/test_torch_layouts.py and tests/test_torch_ada.py hold them)
+    tr = FrameAutoencoderTrainer(_ae_config(tmp_path, use_layout=True, layout_size=2),
+                                 device="cpu")
+    assert tr.ae.encoder_l is not None and tr.ae.decoder_l is not None
+    tr = FrameAutoencoderTrainer(_ae_config(tmp_path, use_aug=True), device="cpu")
+    assert float(tr.init_state().ada_p) == 0.0
 
 
 def test_stft_trainer_runs_and_resumes(tmp_path):

@@ -62,14 +62,14 @@ def test_writers_match_ccvs_tpu(tmp_path):
     back = tio.read_video(str(tmp_path / "port" / "v.avi"))
     assert back.shape == u8.shape
     np.testing.assert_array_equal(back, jio.read_video(str(tmp_path / "jax" / "v.avi")))
-    with pytest.raises(NotImplementedError):
-        tio.layout_to_uint8(np.zeros((2, 4, 4), int))
+    seg = np.random.RandomState(3).randint(0, 40, (2, 4, 4))
+    np.testing.assert_array_equal(tio.layout_to_uint8(seg), jio.layout_to_uint8(seg))
 
 
 def test_save_batch_matches_ccvs_tpu(tmp_path):
     """real, fake and rec AVIs, the state-marked copies, the dataset's ids
     and the category suffixes: the same files, byte for byte, from the same
-    arrays (the port's as tensors); layout outputs raise."""
+    arrays (the port's as tensors); the colour-mapped layouts too."""
     rng = np.random.RandomState(1)
     real = rng.uniform(-1, 1, (2, 3, 16, 16, 3)).astype(np.float32)
     out = {k: rng.uniform(-1, 1, real.shape).astype(np.float32) for k in ("fake", "rec")}
@@ -84,8 +84,12 @@ def test_save_batch_matches_ccvs_tpu(tmp_path):
         assert len(want) == 10 and _files(tdir) == want
     assert "real/vid_00006.avi" in _files(tmp_path / "port" / "0")
     assert "fake_state/vid_00123_drum.avi" in _files(tmp_path / "port" / "2")
-    with pytest.raises(NotImplementedError):
-        VideoGenerator.save_batch(str(tmp_path / "l"), 0, 2, real, {"fake_layout": real})
+    lay = {"real_layout": rng.randint(0, 19, (2, 3, 16, 16)),
+           "fake_layout": rng.normal(0, 1, (2, 3, 16, 16, 5)).astype(np.float32)}
+    JGen.save_batch(None, str(tmp_path / "jl"), 0, 2, real, lay)
+    VideoGenerator.save_batch(str(tmp_path / "tl"), 0, 2, torch.from_numpy(real),
+                              {k: torch.from_numpy(v) for k, v in lay.items()})
+    assert len(_files(tmp_path / "jl")) == 6 and _files(tmp_path / "tl") == _files(tmp_path / "jl")
 
 
 def _bair_set(root, n_clips, n_frames, size, seed=0):

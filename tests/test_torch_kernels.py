@@ -155,7 +155,8 @@ def test_flash_decode_kernel_device_pos(cuda, dtype, rel, tol, length):
     """``pos`` as an int32 device tensor of shape (1,) or (): one launch per
     call, the plain version's result (tolerances as above) on both sides of
     each CTA's part and at the ends, and ``pos >= L`` clamped to ``L - 1``.
-    L 2048 walks two tiles per CTA in bf16, L 1024 two in fp32; L 1152 (the
+    L 2048 (the layout rollout's window of 16 frames of 128 tokens) walks
+    two tiles per CTA in bf16, L 1024 two in fp32; L 1152 (the
     state and unconditional caches) a full tile and a ragged one of 16 rows
     in bf16, L 1280 (the Kinetics-600 window) one of 32."""
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -253,6 +254,48 @@ def test_generate_on_gpu_matches_cpu(cuda):
     got, want = outs["cuda"][0], outs["cpu"][0]
     assert got["fake"].is_cuda
     assert torch.equal(got["code"].cpu(), want["code"])
+    assert float((got["fake"].cpu() - want["fake"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_layout_generate_on_gpu_matches_cpu(cuda):
+    """Layout-conditioned generation, greedy, from the same seeded weights:
+    the layout codebook's search (K1, 4 launches: the clip's and its
+    layouts' encodes, the context frame's and its layout's re-encodes) and
+    K2 with layout tokens as the control stream (2 layers x 2 frames of 16
+    frame and 16 layout tokens) on the card; tokens, layout tokens and the
+    decoded layouts equal to the CPU's, frames within 1e-3."""
+    cfg = Config(
+        ae=AutoencoderConfig(necf=8, necf_mult=(1, 2), z_size=16, z_num=32, z_shape=(4, 4),
+                             max_dim=8, inter_p=0.5, skip_memory=3, skip_context=(1, 2, 3),
+                             use_layout=True, layout_size=2, same_decoder_layout=True),
+        gpt=TransformerConfig(z_num=32, z_len=96, z_chunk=32, num_blocks=3, cond_len=16,
+                              n_layer=2, n_head=2, n_embd=128, z_shape=(4, 4), top_k=1,
+                              top_k_state=1, sample_state=True, layout=True, state_num=32,
+                              state_size=16))
+    g = torch.Generator().manual_seed(5)
+    vid = torch.rand(2, 3, 8, 8, 3, generator=g) * 2 - 1
+    lay = (vid.mean(-1) > 0).long()
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ae = FrameAutoencoder(cfg.ae, dtype=torch.float32, device=dev)
+        tr = TokenTransformer(cfg.gpt, dtype=torch.float32, device=dev)
+        if dev == "cpu":
+            ae.init(seed=0)
+            tr.init(seed=1)
+        else:  # the CPU's weights
+            ae.load_state_dict(outs["cpu"][1])
+            tr.load_state_dict(outs["cpu"][2])
+        k1, k2 = vq_indices.launches, flash_decode_attention.launches
+        out = VideoGenerator(cfg, ae, tr).generate(
+            vid.to(dev), torch.Generator(device=dev).manual_seed(0), rec=False,
+            layout=lay.to(dev))
+        outs[dev] = (out, ae.state_dict(), tr.state_dict(),
+                     (vq_indices.launches - k1, flash_decode_attention.launches - k2))
+    got, want = outs["cuda"][0], outs["cpu"][0]
+    assert outs["cuda"][3] == (4, 2 * 2 * 32)
+    for k in ("code", "state_code", "fake_layout"):
+        assert torch.equal(got[k].cpu(), want[k]), k
     assert float((got["fake"].cpu() - want["fake"]).abs().max()) <= 1e-3
 
 

@@ -28,9 +28,11 @@ from ccvs_tpu_torch.generate import VideoGenerator, square_trajectory
 from ccvs_tpu_torch.models import FrameAutoencoder, StateModel, TokenTransformer
 from ccvs_tpu_torch.nn import quantized as tq
 from ccvs_tpu_torch.nn.gpt import cache_to_layers
-from torch_parity import jax_params, load_into, port_config, set_fp32, to_np
+from torch_parity import (fast_jit, few_threads, jax_params, load_into, port_config, set_fp32,
+                          to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 # two resolutions at 8x8 px: the cheapest autoencoder with the whole decode
 AE = jcfg.AutoencoderConfig(
@@ -87,7 +89,7 @@ def test_state_model_matches_ccvs_tpu(state_models):
     """Estimate within 1e-5, state tokens equal, their decode equal."""
     jsm, params, tsm = state_models
     z = np.random.RandomState(5).normal(0, 1, (2, 3, 4, 4, 16)).astype(np.float32)
-    want = np.asarray(jax.jit(jsm.estimate)(params, jnp.asarray(z)))
+    want = np.asarray(fast_jit(jsm.estimate)(params, jnp.asarray(z)))
     got = tsm.estimate(torch.from_numpy(z))
     assert got.shape == (2, 3, 2)
     np.testing.assert_allclose(to_np(got), want, rtol=1e-5, atol=1e-5)
@@ -119,8 +121,8 @@ def test_gpt_forward_with_prefixes_matches_ccvs_tpu(gpts, mode):
         kw["state_code"] = rng.randint(0, 8, (2, 4))
     if mode == "p2p":
         kw["cond_code"], kw["delta"] = rng.randint(0, 32, (2, 16)), np.array([1, 3])
-    want = jax.jit(jtr.model.apply)({"params": params}, jnp.asarray(code),
-                                   **{k: jnp.asarray(v) for k, v in kw.items()})
+    want = fast_jit(lambda v, c, kw: jtr.model.apply(v, c, **kw))(
+        {"params": params}, jnp.asarray(code), {k: jnp.asarray(v) for k, v in kw.items()})
     got = ttr.model(torch.from_numpy(code), **{k: torch.from_numpy(v) for k, v in kw.items()})
     assert got.shape == want.shape
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -182,8 +184,9 @@ def test_video_generator_matches_ccvs_tpu(gpts, aes, state_models, mode):
     vid = np.random.RandomState(8).uniform(-1, 1, (2, t, 8, 8, 3)).astype(np.float32)
     n_ctx = 0 if mode == "unc" else 1
     jgen = JGen(jcfg.Config(ae=AE, gpt=jtr.cfg, state=SCFG), jae, jtr, state_model=jsm)
-    want = jgen.generate({"ae": aparams, "gpt": gparams, "state": sparams},
-                         jax.random.PRNGKey(0), jnp.asarray(vid), rec=False, n_ctx_frames=n_ctx)
+    want = fast_jit(lambda p, r, v: jgen.generate(p, r, v, rec=False, n_ctx_frames=n_ctx))(
+        {"ae": aparams, "gpt": gparams, "state": sparams}, jax.random.PRNGKey(0),
+        jnp.asarray(vid))
     gen = VideoGenerator(Config(ae=tae.cfg, gpt=ttr.cfg), tae, ttr, state_model=tsm)
     got = gen.generate(torch.from_numpy(vid), torch.Generator().manual_seed(0), rec=False,
                        n_ctx_frames=n_ctx)
@@ -215,7 +218,7 @@ def test_custom_square_state_matches_ccvs_tpu(aes, state_models):
     vid = np.random.RandomState(10).uniform(-1, 1, (2, 4, 8, 8, 3)).astype(np.float32)
     # the JAX package's custom_square_state, its steps jitted
     code = jae.get_jit_encode()(aparams, jnp.asarray(vid[:, :1]))["code"]
-    first = jax.jit(lambda c: jsm.estimate(sparams, jae.embed_code(aparams, c)))(code)
+    first = fast_jit(lambda c: jsm.estimate(sparams, jae.embed_code(aparams, c)))(code)
     want = j_square(first, 4)
     gen = VideoGenerator(Config(ae=tae.cfg, gpt=port_config(GPTS["state"])), tae, None,
                          state_model=tsm)
@@ -225,14 +228,23 @@ def test_custom_square_state_matches_ccvs_tpu(aes, state_models):
 
 
 def test_generate_refuses_modes_not_ported(gpts, aes):
-    """Layouts are the one mode of the JAX package's ``generate`` not ported
-    (``tests/test_torch_serving.py`` holds the others)."""
+    """Every mode of the JAX package's ``generate`` is ported
+    (``tests/test_torch_serving.py`` and ``tests/test_torch_layouts.py``
+    hold the others): a ``layout`` is ignored without ``cfg.gpt.layout``,
+    as there, and ``cfg.gpt.layout`` without the autoencoder's layout twins
+    raises."""
     _, _, ttr = gpts["frame"]
     _, _, tae = aes
     gen = VideoGenerator(Config(ae=tae.cfg, gpt=ttr.cfg), tae, ttr)
     vid = torch.zeros(1, 2, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gen.generate(vid, torch.Generator(), layout=vid[..., 0])
+    lay = torch.zeros(1, 2, 8, 8, dtype=torch.long)
+    plain = gen.generate(vid, torch.Generator().manual_seed(0), rec=False)
+    with_lay = gen.generate(vid, torch.Generator().manual_seed(0), rec=False, layout=lay)
+    assert "fake_layout" not in with_lay and torch.equal(with_lay["fake"], plain["fake"])
+    gcfg = dataclasses.replace(ttr.cfg, layout=True, state_num=32, state_size=16)
+    with pytest.raises(ValueError, match="layout twins"):
+        VideoGenerator(Config(ae=tae.cfg, gpt=gcfg), tae, ttr).generate(
+            vid, torch.Generator(), layout=lay)
 
 
 # ---------------- int8 ----------------
@@ -265,7 +277,7 @@ def test_decode_step_int8_matches_ccvs_tpu(gpts):
     ck, cv = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
     emb1 = rng.normal(0, 1, (2, 1, cfg.n_embd)).astype(np.float32)
     pos = 40
-    step = jax.jit(lambda q, e, p, c: jq.decode_step_fn_int8(cfg, params, q, e, p, c, dtype=F32))
+    step = fast_jit(lambda q, e, p, c: jq.decode_step_fn_int8(cfg, params, q, e, p, c, dtype=F32))
     want, jcache = step(jq.quantize_gpt_int8(params), jnp.asarray(emb1),
                         jnp.asarray(pos, jnp.int32),
                         j_cache_to_layers((jnp.asarray(ck), jnp.asarray(cv))))

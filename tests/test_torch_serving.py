@@ -28,9 +28,11 @@ from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import FrameAutoencoder, StftModel, TokenTransformer
 from ccvs_tpu_torch.ops.resize import resize_frames
 from ccvs_tpu_torch.train.transformer_trainer import blur_video
-from torch_parity import jax_params, load_into, port_config, set_fp32, to_np
+from torch_parity import (fast_jit, few_threads, jax_params, load_into, port_config, set_fp32,
+                          to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 # two resolutions at 8x8 px (the cheapest autoencoder with the whole decode),
 # 16 tokens a frame
@@ -95,7 +97,7 @@ def stft_models():
     params = jax_params(jsm.init, seed=5)
     params["encoder"] = jax.tree_util.tree_map_with_path(
         lambda path, x: jnp.zeros_like(x) if path[-1].key == "bias" else x, params["encoder"])
-    lat = np.asarray(jax.jit(lambda p, x: jsm.encoder.apply({"params": p}, x))(
+    lat = np.asarray(fast_jit(lambda p, x: jsm.encoder.apply({"params": p}, x))(
         params["encoder"], jnp.asarray(spectrogram(8, 6)))).reshape(-1, STFT.stft_size)
     pick = np.random.RandomState(7).choice(len(lat), STFT.stft_num, replace=False)
     params["quantizer"]["embedding"] = jnp.asarray(lat[pick])
@@ -122,9 +124,10 @@ def generators(gpts, aes, mode, stft_models=None):
 
 
 def jitted(fn, *args, **static):
-    """``fn(*args, **static)`` of the JAX package under one ``jax.jit``:
-    its eager glue compiles op by op, which costs more on the CPU."""
-    return jax.jit(lambda *a: fn(*a, **static))(*args)
+    """``fn(*args, **static)`` of the JAX package under one ``jax.jit``
+    (``fast_jit``: XLA's quick compile options): its eager glue compiles op
+    by op, which costs more on the CPU."""
+    return fast_jit(lambda *a: fn(*a, **static))(*args)
 
 
 def generate_with_tokens(jgen, *args, **kw):
@@ -153,21 +156,21 @@ def test_stft_model_matches_ccvs_tpu(stft_models):
     ``encode`` / ``decode`` of the model as the JAX package's."""
     jsm, params, tsm = stft_models
     spec = spectrogram(3, 9)
-    lat = jax.jit(lambda p, x: jsm.encoder.apply({"params": p}, x))(params["encoder"],
+    lat = fast_jit(lambda p, x: jsm.encoder.apply({"params": p}, x))(params["encoder"],
                                                                      jnp.asarray(spec))
     got_lat = tsm.encoder(torch.from_numpy(spec))
     assert got_lat.shape == (2, 3, 8, 2, 16)
     np.testing.assert_allclose(to_np(got_lat), np.asarray(lat), rtol=1e-5, atol=1e-5)
-    want_code = np.asarray(jax.jit(jsm.encode)(params, jnp.asarray(spec)))
+    want_code = np.asarray(fast_jit(jsm.encode)(params, jnp.asarray(spec)))
     got_code = tsm.encode(torch.from_numpy(spec))
     assert want_code.shape == (2, 48)
     np.testing.assert_array_equal(to_np(got_code), want_code)
     assert len(np.unique(want_code)) > 8  # the codebook spans the latents
-    want_rec = np.asarray(jax.jit(jsm.decode)(params, jnp.asarray(want_code)))
+    want_rec = np.asarray(fast_jit(jsm.decode)(params, jnp.asarray(want_code)))
     got_rec = tsm.decode(got_code)
     assert got_rec.shape == (2, 3, 64, 16, 1)
     np.testing.assert_allclose(to_np(got_rec), want_rec, rtol=1e-5, atol=1e-5)
-    dec = jax.jit(lambda p, z: jsm.decoder.apply({"params": p}, z))(params["decoder"], lat)
+    dec = fast_jit(lambda p, z: jsm.decoder.apply({"params": p}, z))(params["decoder"], lat)
     np.testing.assert_allclose(to_np(tsm.decoder(got_lat)), np.asarray(dec), rtol=1e-5,
                                atol=1e-5)
 
@@ -229,7 +232,8 @@ def test_class_label_generation_matches_ccvs_tpu(gpts, aes):
     jtr, gparams, ttr = gpts["cat"]
     rng = np.random.RandomState(11)
     code, lbl = rng.randint(0, 32, (2, 20)), np.array([3, 1])
-    want = jax.jit(jtr.model.apply)({"params": gparams}, jnp.asarray(code), lbl=jnp.asarray(lbl))
+    want = fast_jit(lambda v, c, lb: jtr.model.apply(v, c, lbl=lb))(
+        {"params": gparams}, jnp.asarray(code), jnp.asarray(lbl))
     got = ttr.model(torch.from_numpy(code), lbl=torch.from_numpy(lbl))
     assert got.shape == want.shape == (2, 21, 32)
     np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -51,9 +51,11 @@ from ccvs_tpu_torch.train.state_trainer import StateEstimatorTrainer
 from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from ccvs_tpu_torch.weights import _translate, export_params, load_params
-from torch_parity import REPO, jax_params, load_into, port_config, set_fp32, to_np
+from torch_parity import (REPO, fast_jit, few_threads, jax_params, load_into, port_config,
+                          set_fp32, to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 # three frames of 4x4 tokens fill every form's window (num_blocks 3)
 BASE = jcfg.TransformerConfig(
@@ -191,7 +193,7 @@ def test_quantizer_gradients_match_ccvs_tpu(n_e, e_dim, mult, normalize):
         z_q, loss, (perp, idx) = jq.apply({"params": p}, z)
         return jnp.sum(w * z_q) + loss, (loss, perp, idx)
 
-    (_, (jl, jperp, jidx)), (gp, gz) = jax.jit(
+    (_, (jl, jperp, jidx)), (gp, gz) = fast_jit(
         jax.value_and_grad(jloss, (0, 1), has_aux=True))(params, z)
     tq = VectorQuantizer(n_e, e_dim, beta=0.25, mult=mult, normalize=normalize)
     with torch.no_grad():
@@ -225,7 +227,7 @@ def test_state_model_loss_matches_ccvs_tpu():
     rng = np.random.RandomState(5)
     z = rng.randn(6, 4, 4, 16).astype(np.float32)
     target = rng.uniform(0, 1, (6, 2)).astype(np.float32)
-    (jl, jm), jg = jax.jit(jax.value_and_grad(jsm.loss, has_aux=True))(params, z, target)
+    (jl, jm), jg = fast_jit(jax.value_and_grad(jsm.loss, has_aux=True))(params, z, target)
     tsm = load_into(StateModel(port_config(SCFG), device="cpu"), params)
     loss, m = tsm.loss(torch.tensor(z), torch.tensor(target))
     loss.backward()
@@ -249,7 +251,7 @@ def test_transformer_loss_and_gradients_match_ccvs_tpu(gpts, form):
         return jtr.loss(p, b["code"], state_code=b.get("state_code"),
                         cond_code=b.get("cond_code"), delta=b.get("delta"), lbl=b.get("vid_lbl"))
 
-    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params, jax_batch(batch))
+    (jl, jm), jg = fast_jit(jax.value_and_grad(jloss, has_aux=True))(params, jax_batch(batch))
     tr = port_transformer(cfg, params)
     b = torch_batch(batch)
     loss, m = tr.loss(b["code"], state_code=b.get("state_code"), cond_code=b.get("cond_code"),
@@ -552,7 +554,7 @@ def test_gpt_export_loads_into_ccvs_tpu(gpts):
         kw = {k: b[k] for k in ("state_code", "cond_code", "delta") if k in b}
         if cfg.cat:
             kw["lbl"] = b["vid_lbl"]
-        jl = jax.jit(lambda p, c, kw: jtr.model.apply({"params": p}, c, **kw))(
+        jl = fast_jit(lambda p, c, kw: jtr.model.apply({"params": p}, c, **kw))(
             tree, b["code"], {k: jnp.asarray(v) for k, v in kw.items()})
         tk = {k: torch.as_tensor(v).long() for k, v in kw.items()}
         with torch.no_grad():
@@ -624,9 +626,9 @@ def test_transformer_trainer_runs_and_resumes(tmp_path):
     resumed = trainer.run(n_iter=5, resume=True)
     assert resumed.step == 5 and not trainer.preempted
     assert max(d["step"] for d in _metrics(tmp_path, "tiny")) == 4
-    with pytest.raises(NotImplementedError):
-        TransformerTrainer(cfg.replace(gpt=dataclasses.replace(cfg.gpt, layout=True)), ae,
-                           device="cpu")
+    # layout conditioning builds now (tests/test_torch_layouts.py holds it)
+    TransformerTrainer(cfg.replace(gpt=dataclasses.replace(cfg.gpt, layout=True)), ae,
+                       device="cpu")
 
 
 def test_trainer_encode_is_the_autoencoders(tmp_path):
