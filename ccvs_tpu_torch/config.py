@@ -8,8 +8,7 @@ variants, Kinetics-600, UCF-101 and the audio-conditioned drums,
 Fields keep the JAX package's names and defaults. Only the fields the port
 reads are here, and the data group whole: the autoencoder options no preset
 sets (``no_corr``, ``skip_rgb``, ``keep_first``, deformable convolutions,
-...), and ``emb_mode`` other than ``"temporal"``, come with the slices that
-need them.
+...) come with the slices that need them.
 """
 
 import dataclasses
@@ -117,6 +116,15 @@ class AutoencoderConfig:
     z_num: int = 1024
     z_shape: Tuple[int, int] = (8, 8)
     max_dim: int = 256
+    # each latent position is ``z_mult`` sub-vectors of ``z_size // z_mult``
+    # channels, quantized each on its own
+    z_mult: int = 1
+    # the encoder's latent, and each quantized code, divided by its channel norm
+    normalize_out: bool = False
+    # the image and video G losses take the encoder's fp32 latent as it is:
+    # no quantizer and no quantization loss (the latent that feeds a
+    # continuous GPT)
+    is_continuous: bool = False
     # context ("inter") features: this share of the channels at each resolution
     inter_p: float = 0.75
     skip_context: Tuple[int, ...] = tuple(range(1, 16))
@@ -212,8 +220,7 @@ class AutoencoderConfig:
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """Latent transformer (reference ``options.py:268-347``, prefix ``x_``),
-    with ``emb_mode="temporal"`` positional embeddings."""
+    """Latent transformer (reference ``options.py:268-347``, prefix ``x_``)."""
 
     z_num: int = 1024  # vocabulary
     z_len: int = 1024  # window capacity in tokens
@@ -224,6 +231,15 @@ class TransformerConfig:
     n_head: int = 16
     n_embd: int = 1024
     z_shape: Tuple[int, int] = (8, 8)
+    # positional embeddings: "temporal" (spatial ``s_emb`` + temporal
+    # ``t_emb``), "spatio-temporal" (``h_emb`` + ``w_emb`` + ``t_emb``) or
+    # None (one ``pos_emb`` over ``num_blocks`` frames)
+    emb_mode: Optional[str] = "temporal"
+    # the continuous GPT (``CGPT``, ``ContinuousTransformer``): inputs of
+    # ``n_in`` channels, ``n_proposals`` predictions a position, each with a
+    # logit where there are several
+    n_in: int = 3
+    n_proposals: int = 1
 
     # conditioning modes
     p2p: bool = False  # the end frame's tokens are a prefix ("point to point")
@@ -322,21 +338,22 @@ class StftConfig:
 
 # The JAX package's config fields that the port does not have, by group
 # (``config`` for the top level), with their defaults there: options of
-# slices not ported yet (``ROADMAP.md``, queue 1) and the JAX package's own
-# knobs. ``tests/test_torch_generate.py`` holds this table to
+# slices not ported yet (``ROADMAP.md``, queue 1), the JAX package's own
+# knobs, and fields that neither package reads (``ae.use_q_anyway``,
+# ``gpt.is_continuous``, ``gpt.embd_pdrop``: the caller picks
+# ``ContinuousTransformer``), so that a value they would ignore raises.
+# ``tests/test_torch_generate.py`` holds this table to
 # ``dataclasses.fields`` of ``ccvs_tpu/config.py``.
 JAX_ONLY_DEFAULTS = {
     "ae": {
-        "z_mult": 1, "aspect_ratio": 1.0, "normalize_out": False, "is_continuous": False,
-        "use_q_anyway": False, "use_inter": True, "no_corr": False, "no_proj": False,
+        "aspect_ratio": 1.0, "use_inter": True, "no_corr": False, "no_proj": False,
         "use_masked_flow": False, "use_deformed_conv": False, "use_tradeoff": False,
         "skip_rgb": False, "skip_tanh": False, "skip_mode": "enc", "keep_first": False,
         "n_first": 1, "shared_x_split": True, "decode_buckets": (2, 4, 8),
         "serve_fused": False, "weight_decay": 0.0, "use_quant_loss_vid": False,
-        "decoder_only": False, "dtype": "bfloat16",
+        "decoder_only": False, "dtype": "bfloat16", "use_q_anyway": False,
     },
-    "gpt": {"emb_mode": "temporal", "is_continuous": False, "n_in": 3, "n_proposals": 1,
-            "embd_pdrop": 0.0, "dtype": "bfloat16"},
+    "gpt": {"dtype": "bfloat16", "is_continuous": False, "embd_pdrop": 0.0},
     "state": {"quantize_only": False},
     "config": {"async_ckpt": False},
 }

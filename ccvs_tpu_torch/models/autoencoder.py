@@ -42,13 +42,19 @@ class FrameAutoencoder(nn.Module):
         self.encoder_l = self.quantizer_l = self.decoder_l = None
         with resolve_device(device):
             self.encoder = SkipEncoder(cfg, **kw)
-            self.quantizer = VectorQuantizer(cfg.z_num, cfg.z_size)
+            self.quantizer = self._quantizer()
             self.decoder = SkipDecoder(cfg, mode="both" if shared else "rgb", **kw)
             if cfg.use_layout:
                 self.encoder_l = SkipEncoder(cfg, mode="layout", **kw)
-                self.quantizer_l = VectorQuantizer(cfg.z_num, cfg.z_size)
+                self.quantizer_l = self._quantizer()
                 if not shared:
                     self.decoder_l = SkipDecoder(cfg, mode="layout", **kw)
+
+    def _quantizer(self):
+        """A codebook of ``z_num`` codes of ``z_size // z_mult`` channels,
+        its lookups normalized with ``normalize_out``."""
+        cfg = self.cfg
+        return VectorQuantizer(cfg.z_num, cfg.z_size, mult=cfg.z_mult, normalize=cfg.normalize_out)
 
     @property
     def device(self):
@@ -83,7 +89,9 @@ class FrameAutoencoder(nn.Module):
     def encode(self, frames):
         """Frames ``(B[, T], H, W, 3)`` in [-1, 1] -> dict of ``code``
         ``(B[, T], h*w)``, ``z`` (quantized latents, fp32) and ``inter`` (context
-        features per resolution, finest first)."""
+        features per resolution, finest first). With ``z_mult`` > 1 the
+        indices have the JAX package's shape, ``(B[, T], h, w * z_mult)``;
+        :meth:`embed_code` cannot take such a code back, in either package."""
         z, inters = self.encoder(frames.to(self.dtype))
         z_q, idx = self.quantizer.quantize(z.float())
         lead = idx.shape[:idx.ndim - 2]

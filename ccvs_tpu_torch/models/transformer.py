@@ -1,8 +1,9 @@
 """Latent-token transformer: the training loss, and KV-cached autoregressive
 generation with the sliding window, beam search and the fixed-window chunk of
-step-by-step generation (counterpart of ``ccvs_tpu/models/transformer.py``
-but the continuous transformer), over the frame stream with interleaved state
-tokens and the ``[lbl][start][cond]`` prefix.
+step-by-step generation (counterpart of ``ccvs_tpu/models/transformer.py``),
+over the frame stream with interleaved state tokens and the
+``[lbl][start][cond]`` prefix; and the continuous transformer, which
+regresses the next latent vector and rolls out greedily.
 
 The JAX package scans its per-token decode step as one compiled program
 (``_fill_jit``, ``_fill_beam_jit``, ``_chunk_fill_jit``); here it is a Python
@@ -15,11 +16,12 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ccvs_tpu_torch.device import resolve_device
-from ccvs_tpu_torch.nn.gpt import (GPT, KIND_FRAME, KIND_STATE, build_schedule, cache_to_layers,
-                                   decode_step_fn)
+from ccvs_tpu_torch.nn.gpt import (CGPT, GPT, KIND_FRAME, KIND_STATE, build_schedule,
+                                   cache_to_layers, decode_step_fn)
 from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
 
 
@@ -388,3 +390,91 @@ class TokenTransformer(nn.Module):
             logits = step_fn(model, emb1=emb1, pos=pos, cache=layers[cur])
             pos += 1
         return merged.reshape(b, beam, length), log_p.reshape(b, beam)
+
+
+class ContinuousTransformer(nn.Module):
+    """The continuous GPT (:class:`CGPT`) in compute ``dtype`` with
+    parameters in ``param_dtype`` (default ``dtype``): the reference's
+    ``is_continuous`` path (``transformer_model.py:147-159``), a regression
+    of the next latent vector and its greedy rollout. It starts in eval
+    mode."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None, param_dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        with resolve_device(device):
+            self.model = CGPT(cfg, dtype=dtype, param_dtype=param_dtype)
+        self.eval()
+
+    @property
+    def device(self):
+        return self.model.head.weight.device
+
+    def init(self, seed=0):
+        """Seeded random parameters; returns self."""
+        self.model.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
+        return self
+
+    def loss(self, code, generator=None):
+        """Mean squared error of the next vector (``transformer_model.py:159``)
+        for ``code`` ``(B, T, n_in)`` cut to ``z_len``; with several
+        proposals, each position's best proposal's. Returns ``(mse, {"nll":
+        mse})``."""
+        cfg = self.cfg
+        code = code[:, :cfg.z_len]
+        pred = self.model(code[:, :-1], generator=generator)
+        if cfg.n_proposals > 1:
+            err = ((pred[1] - code[:, 1:, None]) ** 2).mean(-1)  # (B, T, P)
+            mse = err.min(-1).values.mean()
+        else:
+            mse = ((pred - code[:, 1:]) ** 2).mean()
+        return mse, {"nll": mse}
+
+    @torch.no_grad()
+    def generate(self, code, total_len, normalize_pred=False):
+        """Greedy rollout of ``code`` ``(B, n0, n_in)`` to ``total_len``
+        vectors (``transformer_model.py:344-348``): one prefill over the
+        zero-padded buffer, then one cached decode step a position (K2 in
+        each layer on CUDA). Each prediction is the proposal of the largest
+        logit, divided by its norm with ``normalize_pred``; the next input's
+        embedding is ``x @ W + b + pos_emb[j - 1]``, in fp32 and then the
+        compute dtype. The position advances on the device. Returns the
+        buffer ``(B, total_len, n_in)``, or ``code`` when ``total_len <=
+        n0``."""
+        cfg, model = self.cfg, self.model
+        b, n0, n_in = code.shape
+        length = int(total_len)
+        if length <= n0:
+            return code
+        buf = code.new_zeros(b, length, n_in)
+        buf[:, :n0] = code
+
+        def pick(out):
+            """Head output at one position -> the prediction ``(B, n_in)``."""
+            if cfg.n_proposals > 1:
+                o = out.reshape(b, cfg.n_proposals, n_in + 1)
+                best = o[..., 0].argmax(-1)
+                pred = o[..., 1:].gather(1, best[:, None, None].expand(b, 1, n_in))[:, 0]
+            else:
+                pred = out
+            if normalize_pred:
+                pred = pred / torch.linalg.vector_norm(pred, dim=-1, keepdim=True)
+            return pred.to(buf.dtype)
+
+        cache = model.init_cache(b, length)
+        out, cache = model.prefill(model.embed(buf), cache)
+        if cfg.n_proposals > 1:
+            logits, props = out
+            out = torch.cat([logits[..., None], props], dim=-1).reshape(b, length, -1)
+        buf[:, n0] = pick(out[:, n0 - 1])
+        if length <= n0 + 1:
+            return buf
+        layers = cache_to_layers(cache)
+        w, bias = model.tok_emb.weight.float(), model.tok_emb.bias.float()
+        pe = model.pos_emb[0].float()
+        pos = torch.full((1,), n0, dtype=torch.int32, device=buf.device)
+        for j in range(n0 + 1, length):
+            emb1 = (F.linear(buf[:, j - 1:j].float(), w, bias) + pe[j - 1]).to(model.dtype)
+            buf[:, j] = pick(decode_step_fn(model, emb1, pos, layers))
+            pos += 1
+        return buf

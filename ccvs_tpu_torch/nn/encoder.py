@@ -11,7 +11,8 @@ class SkipEncoder(nn.Module):
     latent size. The first ``inter_p`` of the channels at every resolution are
     the context ("inter") features of the flow-warping decoder. ``mode``
     ``"layout"`` encodes one-hot segmentations of ``cfg.layout_size``
-    classes instead of RGB (the layout twin)."""
+    classes instead of RGB (the layout twin). With ``cfg.normalize_out`` the
+    latent is divided by its norm over channels."""
 
     def __init__(self, cfg, mode="rgb", dtype=torch.float32, param_dtype=None):
         super().__init__()
@@ -38,4 +39,6 @@ class SkipEncoder(nn.Module):
             out = getattr(self, f"block{i}")(out)
             inters.append(out[..., :sizes[i]])
         out = getattr(self, f"block{cfg.num_resolutions}")(out)
+        if cfg.normalize_out:  # divided by its channel norm, taken in fp32
+            out = out / torch.linalg.vector_norm(out.float(), dim=-1, keepdim=True).to(out.dtype)
         return unflatten_vid(out, t), [unflatten_vid(f, t) for f in inters]

@@ -1,10 +1,13 @@
 """Autoregressive latent transformer with a fixed-shape KV cache
 (counterpart of ``ccvs_tpu/nn/gpt.py``): the frame-token stream, with state
 tokens interleaved (or in front), and the ``[lbl][start][cond]`` prefix of
-the class-conditional, unconditional and point-to-point modes.
+the class-conditional, unconditional and point-to-point modes, under each
+``emb_mode``; and the continuous GPT (:class:`CGPT`), whose inputs are
+vectors and whose head makes one or several proposals of the next.
 
 Parameter names follow the flax modules (``tok_emb``, ``state_tok_emb``,
-``start_tok_emb``, ``lbl_emb``, ``s_emb``, ``state_s_emb``, ``t_emb``,
+``start_tok_emb``, ``lbl_emb``, the positional ``s_emb`` / ``h_emb`` /
+``w_emb`` / ``t_emb`` / ``pos_emb``, ``state_s_emb`` / ``state_pos_emb``,
 ``core.blocks.<layer>.{ln1, attn.{query, key, value, proj}, ln2, fc1, fc2}``,
 ``core.ln_f``, ``head``); the JAX package stacks the blocks along a leading
 layer axis, the port keeps one module per layer (see ``weights.py``).
@@ -284,11 +287,25 @@ def decode_step_fn(model, emb1, pos, cache):
     return _dense(model.head, xn.to(model.dtype))[:, 0]
 
 
+def _reset_parameters(module, generator):
+    """Linear and embedding weights N(0, 0.02), their biases 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+
+
 class GPT(nn.Module):
-    """Discrete-token GPT with ``emb_mode="temporal"`` positional embeddings
-    (spatial ``s_emb`` + temporal ``t_emb``); state tokens have their own
-    vocabulary and spatial embedding (``state_tok_emb``, ``state_s_emb``).
-    The head spans both vocabularies."""
+    """Discrete-token GPT. Its positional embeddings follow ``cfg.emb_mode``:
+    "temporal", a spatial ``s_emb`` and a temporal ``t_emb``;
+    "spatio-temporal", a row ``h_emb``, a column ``w_emb`` and ``t_emb``;
+    None, one ``pos_emb`` over ``num_blocks`` frames, indexed by ``t * h * w
+    + s``. State tokens have their own vocabulary (``state_tok_emb``) and
+    positional embedding: ``state_s_emb`` + ``t_emb``, or with ``emb_mode``
+    None a ``state_pos_emb`` over ``num_blocks`` frames. The head spans both
+    vocabularies."""
 
     def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
@@ -302,23 +319,33 @@ class GPT(nn.Module):
             self.start_tok_emb = nn.Parameter(torch.zeros(1, d, dtype=pdt))
         if cfg.cat:
             self.lbl_emb = nn.Embedding(cfg.num_lbl, d, dtype=pdt)
-        self.s_emb = nn.Parameter(torch.zeros(1, cfg.size, d, dtype=pdt))
-        self.t_emb = nn.Parameter(torch.zeros(1, cfg.num_blocks, d, dtype=pdt))
+        h, w = cfg.z_shape
+
+        def zeros(n):
+            return nn.Parameter(torch.zeros(1, n, d, dtype=pdt))
+
+        if cfg.emb_mode == "spatio-temporal":
+            self.h_emb, self.w_emb, self.t_emb = zeros(h), zeros(w), zeros(cfg.num_blocks)
+        elif cfg.emb_mode == "temporal":
+            self.s_emb, self.t_emb = zeros(h * w), zeros(cfg.num_blocks)
+        elif cfg.emb_mode is None:
+            self.pos_emb = zeros(cfg.num_blocks * h * w)
+        else:
+            raise ValueError(f"emb_mode {cfg.emb_mode!r}")
         if cfg.state_size > 0:
-            self.state_s_emb = nn.Parameter(torch.zeros(1, cfg.state_size, d, dtype=pdt))
+            if cfg.emb_mode is None:
+                self.state_pos_emb = zeros(cfg.num_blocks * cfg.state_size)
+            else:
+                self.state_s_emb = zeros(cfg.state_size)
         self.core = GPTCore(cfg, dtype, param_dtype)
         self.head = nn.Linear(d, max(cfg.z_num, cfg.state_num), bias=False, dtype=pdt)
 
     def reset_parameters(self, generator):
         """Seeded init: linear and embedding weights N(0, 0.02), the start
         token N(0, 1), biases and positional embeddings 0, LayerNorms 1 and 0."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Linear, nn.Embedding)):
-                    m.weight.normal_(0.0, 0.02, generator=generator)
-                    if getattr(m, "bias", None) is not None:
-                        m.bias.zero_()
-            if self.cfg.use_start_token:
+        _reset_parameters(self, generator)
+        if self.cfg.use_start_token:
+            with torch.no_grad():
                 self.start_tok_emb.normal_(0.0, 1.0, generator=generator)
 
     # ---------------- embeddings ----------------
@@ -328,16 +355,31 @@ class GPT(nn.Module):
         return x if x.dtype == self.dtype else x.to(self.dtype)
 
     def _frame_pos_emb(self, s_idx, t_idx, delta=None):
-        """Frame-token positional embedding; ``delta`` ``(B,)`` shifts the
-        temporal index per batch element (then ``(B, L, D)``)."""
+        """Frame-token positional embedding at spatial ``s_idx`` and temporal
+        ``t_idx`` (ints, or index tensors on the device); ``delta`` ``(B,)``
+        shifts the temporal index per batch element before any flattening
+        (then ``(B, L, D)``)."""
+        cfg = self.cfg
+        h, w = cfg.z_shape
         t = t_idx if delta is None else t_idx[None, :] + delta[:, None]
-        return self._c(self.s_emb[0][s_idx] + self.t_emb[0][t])
+        if cfg.emb_mode == "spatio-temporal":
+            pe = self.h_emb[0][s_idx // w] + self.w_emb[0][s_idx % w] + self.t_emb[0][t]
+        elif cfg.emb_mode == "temporal":
+            pe = self.s_emb[0][s_idx] + self.t_emb[0][t]
+        else:
+            pe = self.pos_emb[0][t * (h * w) + s_idx]
+        return self._c(pe)
 
     def _state_pos_emb(self, s_idx, t_idx):
+        ss = self.cfg.state_size
         if torch.is_tensor(s_idx):
             # a buffer's frame positions have spatial indices past the state's;
-            # their state embedding is computed and discarded
-            s_idx = s_idx.clamp_max(self.cfg.state_size - 1)
+            # their state embedding is computed and discarded (clamped before
+            # the flat index of emb_mode None, which it must not carry into
+            # the next frame's)
+            s_idx = s_idx.clamp_max(ss - 1)
+        if self.cfg.emb_mode is None:
+            return self._c(self.state_pos_emb[0][t_idx * ss + s_idx])
         return self._c(self.state_s_emb[0][s_idx] + self.t_emb[0][t_idx])
 
     def _tok(self, tokens):
@@ -448,3 +490,57 @@ class GPT(nn.Module):
             return state() if kind == KIND_STATE else frame()
         is_state = self._index(np.asarray(kind) == KIND_STATE).bool()
         return torch.where(is_state[:, None], state(), frame())
+
+
+class CGPT(nn.Module):
+    """Continuous-embedding GPT with a multi-proposal head
+    (``mingpt.py:308-361``): ``tok_emb`` is a dense layer with bias from
+    ``n_in`` channels to ``n_embd``, ``pos_emb`` ``(1, z_len, D)`` is added
+    from position 0, and the head (no bias) emits ``n_in`` values, or with
+    ``n_proposals`` > 1 ``n_proposals`` groups of ``[logit, n_in values]``.
+    The blocks, the cache and the cached decode step (:func:`decode_step_fn`,
+    kernel K2 on CUDA) are the discrete GPT's."""
+
+    def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d, pdt = cfg.n_embd, param_dtype or dtype
+        self.tok_emb = nn.Linear(cfg.n_in, d, dtype=pdt)
+        self.pos_emb = nn.Parameter(torch.zeros(1, cfg.z_len, d, dtype=pdt))
+        self.core = GPTCore(cfg, dtype, param_dtype)
+        n_logits = cfg.n_proposals if cfg.n_proposals > 1 else 0
+        self.head = nn.Linear(d, cfg.n_proposals * cfg.n_in + n_logits, bias=False, dtype=pdt)
+
+    def reset_parameters(self, generator):
+        """Seeded init: linear weights N(0, 0.02), biases and ``pos_emb`` 0,
+        LayerNorms 1 and 0."""
+        _reset_parameters(self, generator)
+
+    _c = GPT._c
+    init_cache = GPT.init_cache
+
+    def _head_out(self, h):
+        """Head output of hidden states ``(B, T, D)``: ``(B, T, n_in)``, or
+        with several proposals ``(logits (B, T, P), values (B, T, P, n_in))``."""
+        out = _dense(self.head, h)
+        if self.cfg.n_proposals > 1:
+            out = out.reshape(*out.shape[:2], self.cfg.n_proposals, self.cfg.n_in + 1)
+            return out[..., 0], out[..., 1:]
+        return out
+
+    def forward(self, x, single=False, generator=None):
+        """``x`` ``(B, T, n_in)`` -> :meth:`_head_out` at every position, or
+        at the last alone with ``single``."""
+        h = self.core(self.embed(x), generator=generator)
+        if single:
+            h = h[:, -1:]
+        return self._head_out(h)
+
+    def embed(self, x):
+        """``(B, T, n_in)`` -> ``(B, T, D)`` input embeddings from position 0."""
+        return _dense(self.tok_emb, self._c(x)) + self._c(self.pos_emb[:, :x.shape[1]])
+
+    def prefill(self, emb, cache):
+        """Run the whole (placeholder-padded) sequence once, filling the cache;
+        causality makes the positions before the first placeholder exact."""
+        return self._head_out(self.core(emb, cache=cache, index=0)), cache

@@ -79,9 +79,13 @@ class AELosses:
         return fn(*args)
 
     def _encode_q(self, img):
-        """``(z_q, lambda_quant * VQ loss, context features)``; one K1 launch."""
+        """``(z_q, lambda_quant * VQ loss, context features)``; one K1 launch.
+        With ``is_continuous``, ``(z, None, context features)``: the fp32
+        latent, no quantizer and no K1."""
         ae = self.ae
         z, inter_enc = self._ckpt(ae.encoder, img.to(ae.dtype))
+        if self.cfg.is_continuous:
+            return z.float(), None, inter_enc
         z_q, qloss, _ = ae.quantizer(z.float())
         return z_q, qloss * self.cfg.lambda_quant, inter_enc
 
@@ -119,7 +123,7 @@ class AELosses:
         b = real_img.shape[0]
         metrics, loss = {}, 0.0
         z_q, quant_loss, inter_enc = self._encode_q(real_img)
-        if not cfg.no_q_img:
+        if quant_loss is not None and not cfg.no_q_img:
             loss = loss + quant_loss
             metrics["quant_img"] = quant_loss
 
@@ -248,8 +252,10 @@ class AELosses:
         real_vid = batch["vid"]
         metrics = {}
         z_q, quant_loss, inter_enc = self._encode_q(real_vid)
-        loss = quant_loss
-        metrics["quant_vid"] = quant_loss
+        loss = 0.0
+        if quant_loss is not None:
+            loss = quant_loss
+            metrics["quant_vid"] = quant_loss
 
         # the layout twins: merged context features and concatenated latents
         # (``quantized_video_model.py:490-520``)

@@ -16,12 +16,16 @@ read with numpy alone. Translation:
   ``batch_stats`` ``mean`` / ``var`` -> the buffers ``running_mean`` /
   ``running_var``; a leading ``params/`` or ``batch_stats/`` (the
   collections of a flax ``variables`` dict) is dropped;
-- raw parameters (``s_emb``, ``state_s_emb``, ``start_tok_emb``, a
-  codebook's ``embedding``) keep their names, so the state model's tree
+- raw parameters (the GPT's positional ``s_emb``, ``h_emb``, ``w_emb``,
+  ``t_emb``, ``pos_emb``, ``state_s_emb``, ``state_pos_emb``, its
+  ``start_tok_emb``, a codebook's ``embedding``) keep their names, so the
+  state model's tree
   (``estimator/...``, ``quantizer/embedding``) loads into ``StateModel`` and
   the STFT model's (``encoder/...``, ``quantizer/embedding``,
   ``decoder/...``) into ``StftModel`` as they are; the GPT's ``lbl_emb`` is an
-  ``Embed`` like ``tok_emb``.
+  ``Embed`` like ``tok_emb``. The continuous GPT's ``tok_emb`` is a Dense
+  (``tok_emb/kernel``, transposed, and ``tok_emb/bias``) and its head one
+  without bias (``head/kernel``); only Dense kernels are transposed.
 
 One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
 ``stft/...``) loads model by model with ``prefix``. The discriminators

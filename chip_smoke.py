@@ -43,21 +43,22 @@ Phases, each printing its wall time:
    along the GPU's tokens (each product bit-equal on the same input, each
    product's input within 1e-4 of its row's max), its video within 1e-3;
 7. modes: the full-width BAIR-256 state-conditioned, point-to-point,
-   unconditional and int8 rollouts, each run once with its launches counted
+   unconditional and int8 rollouts, 8 frames each (``MODE_LEN``), each run once with its launches counted
    as in phase 3 and its output checked (states in [0, 1] and the context
    frame's state tokens kept; the real end frame last, the end frame's
    prefix and delta moving the first frame's tokens and its features the
    decode; int8 logits of one decode step within 8 % of the bf16 step's);
-8. drums: the full-width audio-conditioned drums rollout (128x128, 45
-   frames from 15, a seeded spectrogram's audio tokens given, the window
-   slides 29 times: 1920 decode steps), the audio tokens given back
+8. drums: the full-width audio-conditioned drums rollout (128x128, 24 of
+   the preset's 45 frames from 15, a seeded spectrogram's audio tokens
+   given, the window slides 8 times: 576 decode steps), the audio tokens given back
    unaltered and another spectrogram shown to move the tokens;
-9. serving: on full-width BAIR-256, step-by-step generation (each frame's
-   tokens its re-encode's), greedy beam search of 4 (the result the best
-   hypothesis, the scores those of a full forward), ``generate_from_image``
-   with ``down_size`` 64, then deblurring (the blurred clip's tokens given
-   back) and drawn class labels (a label shown to move the tokens) at 8
-   frames; each run once with its launches counted as in phase 3;
+9. serving: on full-width BAIR-256 at 8 frames, step-by-step generation
+   (each frame's tokens its re-encode's), greedy beam search of 4 (the
+   result the best hypothesis, the scores those of a full forward),
+   ``generate_from_image`` with ``down_size`` 64, then deblurring (the
+   blurred clip's tokens given back) and drawn class labels (a label shown
+   to move the tokens); each run once with its launches counted as in
+   phase 3;
 10. train: (a) small fp32 configurations, 3 steps of the transformer step
    (plain, state-interleaved, point-to-point, ``grad_accum=2``) and of the
    state step on the card against the CPU (metrics within 1e-4, parameters
@@ -104,16 +105,57 @@ Phases, each printing its wall time:
    rollout and the writing of 48 AVIs timed apart, ``eval-all --rec`` by
    pass, the port's I3D at 224 px in clips a second with its FVD, LPIPS in
    frame pairs a second, SSIM's and PSNR's time, peak memory and the host's
-   stages (JPEG, scipy).
+   stages (JPEG, scipy);
+13. ADA and layouts: (a) ADA's warp, colour matrix and ``augment`` card
+   against CPU on the same draws, R1's derivatives through the warp, a
+   planted fault (the down pass's sym6 unflipped), the small autoencoder's
+   three ADA iterations held to the CPU step by step with ``ada_p`` against
+   the controller's rule, the small layout rollout and greedy
+   ``generate(layout=...)``; (b) ADA at full BAIR-256 width (3 timed
+   iterations, one with R1, K1 2 an iteration) and
+   ``runs_r5/r5_bair_eval_config.json`` as it is; (c) the full-width layout
+   rollout (8 frames of 64 frame and 64 layout tokens in a 2048-token
+   window; K1 4, K2 24 x 896), a layout transformer step on 2 clips (K1 2)
+   and an autoencoder iteration with layouts (K1 4);
+14. GPT variants and reference checkpoints: (a) small fp32 configurations
+   on the card against the CPU: the video rollout with ``emb_mode`` None
+   (with state tokens) and "spatio-temporal" (tokens equal, videos within
+   1e-3), a GPT on a 2 x 4 latent grid (logits within 1e-4, tokens equal)
+   and a planted fault there (``h_emb`` and ``w_emb`` traded) caught,
+   ``ContinuousTransformer`` with 1 and 3 proposals (rollout with and
+   without ``normalize_pred``, loss and gradients within 1e-4 of the
+   largest entry), ``nll_vMF`` and its gradient within 1e-5; (b) full-width
+   BAIR-256 with "spatio-temporal" from ``qvid_e`` / ``qvid_q`` / ``qvid_g``
+   / ``transformer_t`` state dicts in the reference's keys, drawn on the
+   card, loaded through ``port_pytorch`` (every tensor equal to its
+   source) and served: a 2-frame warm-up and one timed 8-frame rollout (K1
+   2, K2 24 x 448), its time a decode step beside phase 3's; (c) the full-width transformer step with
+   ``emb_mode`` None (1 warm-up, 3 timed steps, K1 once a step); (d)
+   ``ContinuousTransformer`` at the BAIR trunk's width (24 x 16 x 1024,
+   512-d inputs, 4 proposals): loss, backward and AdamW on 16 x 1024
+   vectors (1 warm-up, 3 timed), then the bf16 rollout of 2 sequences from
+   64 vectors to 1024 with ``normalize_pred`` (K2 exactly 24 x 959: the
+   prefill gives the first new vector); (e) the autoencoder with ``z_mult``
+   2 and ``normalize_out``: the encoder in fp32 on the preset's corrupted
+   image batch, card against CPU from the same weights (NaN at the same
+   positions, only where the latent is 0 before the division; the rest
+   within fp32 tolerance), then 24 plain images: K1 at (3072, 256) x (1024,
+   256) against the plain search and one image G step (K1 once).
 
-The last two lines are the kernels' JSON record and the result line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-without a result line. Without a CUDA device the script fails at once.
+Phase 0 prints the card's name and power limit; the last three lines are the
+kernels' JSON record, the card line again, and the result line ``{"ok":
+true, "device": {...}}``. Any failure raises and exits non-zero without a
+result line. Without a CUDA device the script fails at once.
 
+Modes for fault 4 (PERF.md §7), each printing JSON lines:
 ``python3 chip_smoke.py trace-kink [SEED]`` runs phase 11 (a) at data seed
 SEED (default 6) and traces its worst video G step's worst gradient entry to
-the kinks where the card and the CPU decide differently (:func:`trace_kink`),
-and prints the result as one JSON line.
+the kinks where the card and the CPU decide differently (:func:`trace_kink`);
+``trace-ops``, ``ae-seeds`` and ``conditioning`` (:func:`trace_ops`,
+:func:`ae_seeds`, :func:`conditioning`); ``kink-conditioning [SEED
+[DRAWS]]`` compares the decisions of the CPU's unperturbed pass of that step
+with its passes under one rounding of the parameters
+(:func:`kink_conditioning`).
 """
 
 import json
@@ -130,6 +172,11 @@ PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_INT8_PER_S = 1979e12    # H100 SXM int8 on the tensor cores, dense
 BATCH, VID_LEN = 2, 16
+# frames of the rollouts that drive one mode each (phases 7, 9, 13 (c) and
+# 14 (b)) and of the drums clip (phase 8, from 45): depth cut to keep the
+# script within half its time limit; phases 3 and 4 roll out at full depth
+MODE_LEN, DRUMS_LEN = 8, 24
+ROLLOUT_S = {}  # the wall time of each rollout of run_path, by name
 KINETICS_LEN = 24  # frames: past the 20 of the 1280-token window, so it slides
 
 
@@ -270,7 +317,8 @@ def phase_kernels(records):
     # re-encodes. The layout quantizer (phase 13) runs at shapes of this list:
     # the layout rollout's (2048, 512) and its context's (128, 512), the AE
     # iteration's (1536, 512) and (1024, 512), the transformer step's 2 clips
-    # (2048, 512), all against a codebook of 1024
+    # (2048, 512), all against a codebook of 1024; phase 14's image G step
+    # with z_mult 2 splits each of its 1536 latents in two: (3072, 256)
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
@@ -278,7 +326,8 @@ def phase_kernels(records):
                            (5760, 512, 1024, True), (1920, 512, 1024, False),
                            (1440, 16, 1024, True), (16384, 512, 1024, True),
                            (6144, 512, 1024, True), (192, 1, 128, True),
-                           (1536, 512, 1024, True), (1024, 512, 1024, True)):
+                           (1536, 512, 1024, True), (1024, 512, 1024, True),
+                           (3072, 256, 1024, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -564,6 +613,7 @@ def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps, run=None, name=N
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {key: fn.launches for key, fn in wrappers.items()}
+    ROLLOUT_S[name] = dt
 
     fake = out["fake"]
     assert fake.is_cuda, "fake video is not on the GPU"
@@ -707,15 +757,15 @@ def phase_modes(records, card):
     from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
 
     size = 64  # tokens a frame in every BAIR preset
-    # state: 2 state tokens before each frame's 64 in a 1056-token window;
-    # 990 decode steps past the context frame's 66 tokens. K1: the encode,
+    # state: 2 state tokens before each frame's 64 (a 1056-token window);
+    # 462 decode steps past the context frame's 66 tokens. K1: the encode,
     # the state quantizer, the context re-encode
     cfg = bairhd_state_config()
     _, _, gen = build_models(cfg)
-    vid = clip(cfg, VID_LEN)
-    out, _ = run_path(records, card, cfg, gen, vid, 1, 3, VID_LEN * (size + 2) - (size + 2))
+    vid = clip(cfg, MODE_LEN)
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 3, (MODE_LEN - 1) * (size + 2))
     fs = out["fake_state"]
-    if fs.shape != (BATCH, VID_LEN, 2) or not bool(((fs >= 0) & (fs <= 1)).all()):
+    if fs.shape != (BATCH, MODE_LEN, 2) or not bool(((fs >= 0) & (fs <= 1)).all()):
         raise AssertionError(f"fake_state: shape {tuple(fs.shape)}, range "
                              f"[{float(fs.min())}, {float(fs.max())}] (expected [0, 1])")
     real = gen.state_model.encode(state=out["state"])
@@ -725,35 +775,36 @@ def phase_modes(records, card):
         f"{float(fs.max()):.4f}], the context frame's state tokens kept")
     del gen
 
-    # p2p: the end frame's 64 tokens are a prefix; 15 frames of 64 in the
-    # remaining 960, 896 decode steps past the context frame
+    # p2p: the end frame's 64 tokens are a prefix; 384 decode steps past the
+    # context frame, before the real end frame
     cfg = bairhd_p2p_config()
     _, _, gen = build_models(cfg)
-    vid = clip(cfg, VID_LEN)
-    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 2) * size)
+    vid = clip(cfg, MODE_LEN)
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (MODE_LEN - 2) * size)
     if not torch.equal(out["fake"][:, -1], vid[:, -1].to(out["fake"].dtype)):
         raise AssertionError("p2p: the last frame is not the real end frame")
     log(f"{cfg.name}: the last frame is the real end frame")
     check_p2p(cfg, gen, vid, out)
     del gen
 
-    # unconditional: a start token and no context frame; 1024 decode steps
+    # unconditional: a start token and no context frame; 512 decode steps
     cfg = bairhd_unc_config()
     _, _, gen = build_models(cfg)
-    run_path(records, card, cfg, gen, clip(cfg, VID_LEN), 0, 1, VID_LEN * size)
+    run_path(records, card, cfg, gen, clip(cfg, MODE_LEN), 0, 1, MODE_LEN * size)
     del gen
 
-    # int8: bairhd with serve_int8; 960 decode steps
+    # int8: bairhd with serve_int8; 448 decode steps
     base = bairhd_config()
     cfg = dataclasses.replace(base, name="bairhd_int8",
                               gpt=dataclasses.replace(base.gpt, serve_int8=True))
     ae, tr, gen = build_models(cfg)
-    vid = clip(cfg, VID_LEN)
-    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (VID_LEN - 1) * size)
-    # one decode step at a filled cache (1023 tokens), int8 against bf16
+    vid = clip(cfg, MODE_LEN)
+    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (MODE_LEN - 1) * size)
+    # one decode step at the rollout's last position (511 tokens cached),
+    # int8 against bf16
     model = tr.model
     code = out["code"]
-    pos = VID_LEN * size - 1
+    pos = MODE_LEN * size - 1
     with torch.no_grad():
         cache = model.init_cache(BATCH, pos + 1)
         s_idx = torch.arange(pos, device="cuda") % size
@@ -787,23 +838,25 @@ def spectrogram(vid_len, seed):
 
 
 def phase_drums(records, card):
-    """The audio-conditioned drums preset at full width: 45 frames continued
-    from 15 with a seeded spectrogram's audio tokens as the whole given state
-    stream. The window (16 frames of 16 audio + 64 frame tokens) fills at
-    frame 16 (64 decode steps past 1216 given tokens), then slides 29 times,
-    each a re-prefill of 1216 given tokens and 64 decode steps: 1920 steps.
-    K1: the frame encode, the audio encode and the context re-encode."""
+    """The audio-conditioned drums preset at full width: ``DRUMS_LEN`` (24)
+    of its 45 frames, continued from 15 with a seeded spectrogram's audio
+    tokens as the whole given state stream. The window (16 frames of 16
+    audio + 64 frame tokens) fills at frame 16 (64 decode steps past 1216
+    given tokens), then slides 8 times, each a re-prefill of 1216 given
+    tokens and 64 decode steps: 576 steps. K1: the frame encode, the audio
+    encode and the context re-encode."""
     import torch
     from ccvs_tpu_torch.config import drums_config
 
     cfg = drums_config()
-    vid_len, n_ctx, size = cfg.data.vid_len, cfg.gpt.cond_len // 64, 64
+    vid_len, n_ctx, size = DRUMS_LEN, cfg.gpt.cond_len // 64, 64
     _, tr, gen = build_models(cfg)
     sm = gen.stft_model
     # a seeded codebook far from the latents maps every patch to one code:
-    # draw it from the encoded latents of another seeded spectrogram
+    # draw it from the encoded latents of another seeded spectrogram, as
+    # long as the preset's clip
     with torch.no_grad():
-        lat = sm.encoder(spectrogram(vid_len, 11)).reshape(-1, cfg.stft.stft_size).float()
+        lat = sm.encoder(spectrogram(cfg.data.vid_len, 11)).reshape(-1, cfg.stft.stft_size).float()
         pick = torch.randperm(len(lat), generator=torch.Generator().manual_seed(12))
         sm.quantizer.embedding.copy_(lat[pick[:cfg.stft.stft_num].to(lat.device)])
     vid, spec = clip(cfg, vid_len), spectrogram(vid_len, 13)
@@ -827,10 +880,10 @@ def phase_drums(records, card):
 
 def phase_serving(records, card):
     """The rest of serving on full-width BAIR-256, bf16, batch 2, each run
-    once with its launches counted: step-by-step generation (16 frames),
-    greedy beam search of 4 hypotheses (16 frames), ``generate_from_image``
-    with ``down_size`` 64 (16 frames), then deblurring and class labels as
-    ``bairhd_config`` overrides (8 frames each)."""
+    once with its launches counted, 8 frames each (``MODE_LEN``):
+    step-by-step generation, ``generate_from_image`` with ``down_size`` 64,
+    greedy beam search of 4 hypotheses, then deblurring and class labels as
+    ``bairhd_config`` overrides."""
     import dataclasses
 
     import torch
@@ -838,30 +891,30 @@ def phase_serving(records, card):
 
     base = bairhd_config()
     size = 64
-    steps = (VID_LEN - 1) * size  # 960: 15 frames past the context frame
+    steps = (MODE_LEN - 1) * size  # 448: 7 frames past the context frame
     ae, tr, gen = build_models(base)
-    vid = clip(base, VID_LEN)
+    vid = clip(base, MODE_LEN)
 
-    # step by step: 15 chunks (a 1024-token prefill and 64 steps each), each
-    # frame decoded and re-encoded: K1 1 + 15
-    out, _ = run_path(records, card, base, gen, vid, 1, 1 + VID_LEN - 1, steps,
+    # step by step: 7 chunks (a 1024-token prefill and 64 steps each), each
+    # frame decoded and re-encoded: K1 1 + 7
+    out, _ = run_path(records, card, base, gen, vid, 1, 1 + MODE_LEN - 1, steps,
                       run=lambda g: gen.generate_step_by_step(vid, g, n_ctx_frames=1),
                       name="bairhd_step_by_step")
     # each frame re-encoded alone, as the loop encodes it (a batch of 30
     # frames takes other bf16 convolution algorithms)
-    reenc = torch.cat([ae.encode(out["fake"][:, i])["code"] for i in range(1, VID_LEN)], dim=1)
+    reenc = torch.cat([ae.encode(out["fake"][:, i])["code"] for i in range(1, MODE_LEN)], dim=1)
     if not torch.equal(out["code"][:, size:], reenc):
         raise AssertionError("step by step: a generated frame's tokens are not its re-encode's")
     batched = ae.encode(out["fake"][:, 1:])["code"].reshape(BATCH, -1)
     log(f"bairhd_step_by_step: every generated frame's tokens are those of its re-encode; "
-        f"re-encoding the 30 frames as one batch changes "
+        f"re-encoding the {BATCH * (MODE_LEN - 1)} frames as one batch changes "
         f"{100 * float((batched != reenc).float().mean()):.2f}% of them (bf16)")
 
     # generate_from_image: one 256x256 frame, degraded to 64x64 and back,
-    # continued to 16 frames: K1 2 (the clip's encode, the context re-encode)
+    # continued to 8 frames: K1 2 (the clip's encode, the context re-encode)
     img = vid[:, 0]
     run_path(records, card, base, gen, vid, 1, 2, steps,
-             run=lambda g: gen.generate_from_image(img, g, down_size=64),
+             run=lambda g: gen.generate_from_image(img, g, vid_len=MODE_LEN, down_size=64),
              name="bairhd_from_image_down64")
     del gen, tr
 
@@ -2879,9 +2932,9 @@ def bairhd_layout_config():
 
 def phase_layout_bairhd(records, card):
     """(c) Layouts at full BAIR-256 width (:func:`bairhd_layout_config`):
-    one rollout at batch 2, 16 frames from 1 context frame, bf16, sampled
-    layouts past the context (a 2-frame warm-up, then the 16-frame run timed
-    with its launches counted: K1 4, K2 24 x 1920); one transformer step on
+    one rollout at batch 2, ``MODE_LEN`` (8) frames from 1 context frame,
+    bf16, sampled layouts past the context (a 2-frame warm-up, then the run
+    timed with its launches counted: K1 4, K2 24 x 896); one transformer step on
     2 clips of 16 frames with their layout tokens (K1 2: the frames' and
     the layouts' encodes); one autoencoder iteration with layouts at 24
     images and 4 clips (K1 4: the image and layout quantizers of both G
@@ -2906,11 +2959,11 @@ def phase_layout_bairhd(records, card):
                  layout=lay[:, :2])
     warm = _synced_since(t0)
     tpf = cfg.ae.tokens_per_frame + cfg.gpt.state_size
-    steps = (VID_LEN - 1) * tpf
-    out, dt = run_path(records, card, cfg, gen, vid, 1, 4, steps, layout=lay,
-                       name="bairhd_layout")
+    steps = (MODE_LEN - 1) * tpf
+    out, dt = run_path(records, card, cfg, gen, vid[:, :MODE_LEN], 1, 4, steps,
+                       layout=lay[:, :MODE_LEN], name="bairhd_layout")
     fl = out["fake_layout"]
-    if fl.shape != lay.shape or not bool(((fl == 0) | (fl == 1)).all()):
+    if fl.shape != lay[:, :MODE_LEN].shape or not bool(((fl == 0) | (fl == 1)).all()):
         raise AssertionError(f"bairhd_layout: fake_layout {tuple(fl.shape)} not 2-class maps")
     if not torch.equal(out["state_code"][:, :cfg.gpt.state_size],
                        ae.encode_layout(lay[:, :1])["code"].reshape(BATCH, -1)):
@@ -2918,7 +2971,7 @@ def phase_layout_bairhd(records, card):
     log(f"bairhd_layout: 2-frame warm-up {warm:.3f} s; the timed rollout's {steps} decode steps "
         f"{1e3 * dt / steps:.2f} ms each; fake_layout's squares cover "
         f"{100 * float(fl.float().mean()):.2f} % (the real layouts' "
-        f"{100 * float(lay.float().mean()):.2f} %)")
+        f"{100 * float(lay[:, :MODE_LEN].float().mean()):.2f} %)")
 
     # one transformer step on layout tokens: 2 clips (a window of 2048
     # tokens holds 4x the attention of the 1024-token step of phase 10)
@@ -2979,6 +3032,495 @@ def phase_ada_layouts(records, card):
     phase_layout_bairhd(records, card)
 
 
+# ---------------- phase 14: GPT variants and reference checkpoints ----------------
+
+POS_EMB = ("s_emb", "h_emb", "w_emb", "t_emb", "pos_emb", "state_s_emb", "state_pos_emb")
+
+
+def randomize_pos_emb(model, seed, std=0.1):
+    """Seeded values in the positional embeddings, which the seeded init
+    zeroes as the JAX package's does: otherwise no ``emb_mode`` could show."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in POS_EMB:
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+    return model
+
+
+def _pair(make, cpu_module, dev):
+    """``make(dev)`` holding ``cpu_module``'s parameters."""
+    m = make(dev)
+    m.load_state_dict(cpu_module.state_dict())
+    return m
+
+
+def _rel_err(got, want):
+    return float((got.detach().cpu() - want.detach()).abs().max()) / max(
+        float(want.detach().abs().max()), 1e-30)
+
+
+def check_tokens_and_logits(tr_gpu, tr_cpu, code, label):
+    """A full forward's logits on the card within 1e-4 of the CPU's largest
+    entry, and greedy ``generate`` tokens equal."""
+    import torch
+
+    with torch.no_grad():
+        err = _rel_err(tr_gpu.model(code.to("cuda")), tr_cpu.model(code))
+    got = tr_gpu.generate(code[:, :8].to("cuda"), torch.Generator(device="cuda").manual_seed(0),
+                          total_len=tr_gpu.cfg.z_len)["code"]
+    want = tr_cpu.generate(code[:, :8], torch.Generator().manual_seed(0),
+                           total_len=tr_cpu.cfg.z_len)["code"]
+    same = torch.equal(got.cpu(), want)
+    log(f"variants {label}: logits card vs CPU {err:.3g} of the largest (tolerance 1e-4), greedy "
+        f"tokens equal: {same}")
+    if not (err <= 1e-4 and same):
+        raise AssertionError(f"variants {label}: logits {err:.3g} of the largest, tokens equal "
+                             f"{same}")
+
+
+def variants_reference():
+    """(a) Small fp32 configurations on the card against the CPU: the video
+    rollout with ``emb_mode`` None (with state tokens) and
+    "spatio-temporal", the GPT on a 2 x 4 grid with a planted fault (rows
+    and columns traded), the continuous transformer's rollout, loss and
+    gradients, and ``nll_vMF``."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import AutoencoderConfig, Config, StateConfig, TransformerConfig
+    from ccvs_tpu_torch.generate import VideoGenerator
+    from ccvs_tpu_torch.models import (ContinuousTransformer, FrameAutoencoder, StateModel,
+                                       TokenTransformer)
+    from ccvs_tpu_torch.ops.misc import nll_vMF
+
+    f32 = torch.float32
+    ae_cfg = AutoencoderConfig(necf=16, necf_mult=(1, 1, 2, 2), z_size=16, z_num=64,
+                               z_shape=(4, 4), max_dim=32, skip_memory=3,
+                               skip_context=(1, 2, 3))
+    base = TransformerConfig(z_num=64, z_len=64, z_chunk=16, num_blocks=4, cond_len=16,
+                             n_layer=2, n_head=2, n_embd=128, z_shape=(4, 4), top_k=1,
+                             top_k_state=1)
+    state_cfg = StateConfig(z_size=16, z_shape=(4, 4), state_hsize=8, state_size=2, state_num=8)
+    vid = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    ae_cpu = FrameAutoencoder(ae_cfg, dtype=f32, device="cpu").init(seed=0)
+    sm_cpu = StateModel(state_cfg, device="cpu").init(seed=2)
+    for name, gpt_cfg in (
+            ("emb_mode None with states", dataclasses.replace(
+                base, emb_mode=None, z_len=72, z_chunk=18, state=True, state_num=8,
+                state_size=2, sample_state=True)),
+            ("spatio-temporal", dataclasses.replace(base, emb_mode="spatio-temporal"))):
+        tr_cpu = TokenTransformer(gpt_cfg, dtype=f32, device="cpu").init(seed=1)
+        randomize_pos_emb(tr_cpu.model, 3)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            ae = _pair(lambda d: FrameAutoencoder(ae_cfg, dtype=f32, device=d), ae_cpu, dev)
+            tr = _pair(lambda d: TokenTransformer(gpt_cfg, dtype=f32, device=d), tr_cpu, dev)
+            sm = (_pair(lambda d: StateModel(state_cfg, device=d), sm_cpu, dev)
+                  if gpt_cfg.state else None)
+            gen = VideoGenerator(Config(ae=ae_cfg, gpt=gpt_cfg, state=state_cfg), ae, tr,
+                                 state_model=sm)
+            outs[dev] = gen.generate(vid.to(dev), torch.Generator(device=dev).manual_seed(0),
+                                     rec=False, n_ctx_frames=1)
+        gpu, cpu = outs["cuda"], outs["cpu"]
+        for key in ("code", "state_code"):
+            if key in cpu and not torch.equal(gpu[key].cpu(), cpu[key]):
+                raise AssertionError(f"variants {name}: greedy {key} differs between the card "
+                                     "and the CPU")
+        err = float((gpu["fake"].cpu() - cpu["fake"]).abs().max())
+        log(f"variants {name}: tokens equal on the card and the CPU, video max abs difference "
+            f"{err:.3g} (tolerance 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"variants {name}: video differs by {err} > 1e-3")
+
+    # a 2 x 4 latent grid: trading rows and columns (h_emb indexed by s % h,
+    # w_emb by s // h) moves the logits, and the check must catch it
+    cfg = dataclasses.replace(base, emb_mode="spatio-temporal", z_shape=(2, 4), z_len=32,
+                              z_chunk=8)
+    tr_cpu = TokenTransformer(cfg, dtype=f32, device="cpu").init(seed=4)
+    randomize_pos_emb(tr_cpu.model, 6)
+    tr_gpu = _pair(lambda d: TokenTransformer(cfg, dtype=f32, device=d), tr_cpu, "cuda")
+    code = torch.randint(0, 64, (2, 24), generator=torch.Generator().manual_seed(7))
+    check_tokens_and_logits(tr_gpu, tr_cpu, code, "spatio-temporal on a 2 x 4 grid")
+    m = tr_gpu.model
+    h = cfg.z_shape[0]
+
+    def traded(s_idx, t_idx, delta=None):
+        t = t_idx if delta is None else t_idx[None, :] + delta[:, None]
+        return m._c(m.h_emb[0][s_idx % h] + m.w_emb[0][s_idx // h] + m.t_emb[0][t])
+
+    m._frame_pos_emb = traded
+    try:
+        check_tokens_and_logits(tr_gpu, tr_cpu, code, "planted fault (h_emb and w_emb traded)")
+        caught = False
+    except AssertionError as e:
+        caught = True
+        log(f"variants: the planted fault is caught: {e}")
+    finally:
+        del m._frame_pos_emb
+    if not caught:
+        raise AssertionError("variants: trading h_emb and w_emb was not caught")
+
+    g = torch.Generator().manual_seed(8)
+    code = torch.randn(2, 100, 16, generator=g)
+    for proposals in (1, 3):
+        ccfg = TransformerConfig(z_len=128, n_layer=2, n_head=2, n_embd=128, n_in=16,
+                                 n_proposals=proposals)
+        cpu = ContinuousTransformer(ccfg, dtype=f32, device="cpu").init(seed=5)
+        randomize_pos_emb(cpu.model, 9)
+        gpu = _pair(lambda d: ContinuousTransformer(ccfg, dtype=f32, device=d), cpu, "cuda")
+        for normalize in (False, True):
+            err = _rel_err(gpu.generate(code[:, :9].to("cuda"), 40, normalize_pred=normalize),
+                           cpu.generate(code[:, :9], 40, normalize_pred=normalize))
+            log(f"variants continuous, {proposals} proposals, normalize_pred {normalize}: "
+                f"rollout card vs CPU {err:.3g} of the largest (tolerance 1e-4)")
+            if not err <= 1e-4:
+                raise AssertionError(f"variants continuous {proposals} {normalize}: {err}")
+        losses, grads = {}, {}
+        for dev, ct in (("cuda", gpu), ("cpu", cpu)):
+            loss, _ = ct.loss(code.to(dev))
+            grads[dev] = torch.autograd.grad(loss, list(ct.model.parameters()))
+            losses[dev] = float(loss.detach())
+        scale = max(float(gr.abs().max()) for gr in grads["cpu"])
+        gerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(grads["cuda"], grads["cpu"]))
+        lerr = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        log(f"variants continuous, {proposals} proposals: loss {losses['cuda']:.6f} card, "
+            f"relative difference {lerr:.3g}; gradients within {gerr / scale:.3g} of the largest "
+            f"entry (tolerance 1e-4 each)")
+        if not (lerr <= 1e-4 and gerr <= 1e-4 * scale):
+            raise AssertionError(f"variants continuous {proposals}: loss {lerr}, gradients "
+                                 f"{gerr / scale}")
+
+    # 32 dimensions: at 512, fp32 ive(255, kappa) underflows to 0 for such
+    # kappa in both packages
+    pred = torch.randn(64, 32, generator=g) * 3
+    tgt = torch.nn.functional.normalize(torch.randn(64, 32, generator=g), dim=-1)
+    vals, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = pred.to(dev).requires_grad_()
+        v = nll_vMF(p, tgt.to(dev))
+        v.backward()
+        vals[dev], grads[dev] = float(v.detach()), p.grad.cpu()
+    verr = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    gerr = _rel_err(grads["cuda"], grads["cpu"])
+    log(f"variants nll_vMF: {vals['cuda']:.6f} on the card, relative difference {verr:.3g}; "
+        f"gradient {gerr:.3g} of the largest (tolerance 1e-5 each)")
+    if not (verr <= 1e-5 and gerr <= 1e-5):
+        raise AssertionError(f"variants nll_vMF: value {verr}, gradient {gerr}")
+
+
+def reference_key(group, name):
+    """The reference's state-dict key of the port's parameter ``name`` of
+    the network saved as ``group`` (``qvid_e``, ``qvid_g``, ``qvid_q`` or
+    ``transformer_t``): the inverse of ``port_pytorch``'s translation. Both
+    hold torch layouts, so the tensors are the same."""
+    import re
+
+    if group == "qvid_q":
+        return "embedding.weight"
+    if group == "transformer_t":
+        name = re.sub(r"^core\.blocks\.", "blocks.", name).replace("core.ln_f.", "ln_f.")
+        return name.replace(".fc1.", ".mlp.0.").replace(".fc2.", ".mlp.3.")
+    # the encoder's downsampling convs sit after a Blur (index 1)
+    down = group == "qvid_e" and re.search(r"\.(conv2|skip)\.conv\.", name)
+    name = name.replace(".conv.", ".1." if down else ".0.")
+    name = re.sub(r"inter_block(\d+)", r"inter_blocks.\1", name)
+    name = re.sub(r"(^|\.)block(\d+)", r"\1blocks.\2", name)
+    return re.sub(r"convs(\d)", r"convs.\1", name)
+
+
+def phase_reference_checkpoint(records, card):
+    """(b) Full-width BAIR-256 with ``emb_mode="spatio-temporal"`` from a
+    checkpoint in the reference's own keys: ``qvid_e``, ``qvid_q``,
+    ``qvid_g`` and ``transformer_t`` state dicts drawn N(0, 0.02) on the
+    card from a seeded generator (the shapes of the port's modules), loaded
+    through ``port_pytorch`` into bf16 models, every loaded tensor its
+    source's (the GPT's Linear weights through the Dense kernels' transpose
+    and back), then served: a 2-frame warm-up and one timed rollout of
+    ``MODE_LEN`` (8) frames, launches as in phase 3."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.generate import VideoGenerator
+    from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+    from ccvs_tpu_torch.port import port_pytorch as pp
+
+    base = bairhd_config()
+    cfg = base.replace(name="bairhd_reference_ckpt",
+                       gpt=dataclasses.replace(base.gpt, emb_mode="spatio-temporal"))
+    torch.cuda.empty_cache()
+    ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16)
+    tr = TokenTransformer(cfg.gpt, dtype=torch.bfloat16)
+    nets = {"qvid_e": ae.encoder, "qvid_q": ae.quantizer, "qvid_g": ae.decoder,
+            "transformer_t": tr.model}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sds = {group: {reference_key(group, n): torch.randn(p.shape, generator=g, device="cuda") * 0.02
+                   for n, p in net.named_parameters()} for group, net in nets.items()}
+    t0 = time.perf_counter()
+    pp.load_ported(ae, pp.port_autoencoder(cfg.ae, sds))
+    pp.load_ported(tr.model, pp.port_gpt(cfg.gpt, sds["transformer_t"]))
+    t_load = _synced_since(t0)
+    n = 0
+    for group, net in nets.items():
+        for name, p in net.named_parameters():
+            src = sds[group][reference_key(group, name)]
+            if not torch.equal(p.detach(), src.to(p.dtype)):
+                raise AssertionError(f"reference checkpoint: {group} {reference_key(group, name)}"
+                                     f" -> {name} is not its source")
+            n += p.numel()
+    log(f"reference checkpoint: {sum(len(sd) for sd in sds.values())} tensors ({n / 1e6:.1f} M "
+        f"values) of {list(sds)} loaded through port_pytorch in {t_load:.2f} s, each equal to "
+        "its source in the module's dtype")
+    del sds
+    gen = VideoGenerator(cfg, ae, tr)
+    vid = clip(cfg, MODE_LEN)
+    # the warm-up: 2 frames (64 decode steps), every shape of the rollout's calls
+    t0 = time.perf_counter()
+    gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
+                 n_ctx_frames=1)
+    log(f"reference checkpoint warm-up rollout (2 frames): {_synced_since(t0):.3f} s")
+    steps = (MODE_LEN - 1) * cfg.gpt.size
+    _, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
+    if "bairhd" in ROLLOUT_S:
+        ref = ROLLOUT_S["bairhd"] / ((VID_LEN - 1) * cfg.gpt.size)
+        log(f"reference checkpoint rollout: {dt / steps / ref:.3f}x phase 3's time a decode "
+            f"step ({1e3 * ref:.2f} ms, emb_mode temporal, seeded init) in this run")
+
+
+def phase_train_emb_none(records, card):
+    """(c) The full-width BAIR-256 transformer step with ``emb_mode`` None (one
+    ``pos_emb`` over 16 frames), 16 clips of 16 frames: 1 warm-up and 3
+    timed steps, K1 once a step."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    base = bairhd_config()
+    cfg = base.replace(name="train_bairhd_emb_none",
+                       data=dataclasses.replace(base.data, dataset="synthetic"),
+                       gpt=dataclasses.replace(base.gpt, emb_mode=None))
+    torch.cuda.empty_cache()
+    batch = to_device(_train_data(cfg, "train", 1)[0], "cuda")
+    tr = TransformerTrainer(cfg, FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0))
+    tr.transformer.init(seed=1)
+    randomize_pos_emb(tr.transformer.model, 10, std=0.02)
+    state = tr.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(4):
+        if i == 1:
+            vq_indices.launches = 0
+            t0 = time.perf_counter()
+        state, m = tr.step(state, tr.encode_batch(batch))
+        losses.append(float(m["nll"]))
+    dt = _synced_since(t0)
+    launches = vq_indices.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train emb_mode None: K1 {launches} launches in 3 steps (expected "
+                             f"3), losses {losses}")
+    records["vq_argmin"]["launches_by_rollout"]["train_bairhd_emb_none (3 steps)"] = launches
+    log(f"train emb_mode None: {dt / 3:.4f} s a step over 3 steps (16 x 1023 input tokens), "
+        f"peak memory {peak:.2f} GiB, K1 {launches} launches, nll by step "
+        f"{[round(x, 4) for x in losses]}; on {card}")
+
+
+def phase_continuous_bairhd(records, card):
+    """(d) ``ContinuousTransformer`` at the BAIR trunk's width (24 x 16 x
+    1024, ``z_len`` 1024, 512-d inputs, 4 proposals): the loss, its
+    backward and AdamW on 16 sequences of 1024 unit vectors (fp32
+    parameters, bf16 compute), 1 warm-up and 3 timed steps; then the bf16
+    rollout of 2 sequences from 64 vectors to 1024 with ``normalize_pred``:
+    one prefill and 959 decode steps, K2 in each layer of each."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.models import ContinuousTransformer
+    from ccvs_tpu_torch.ops.attention import flash_decode_attention
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.states import make_transformer_optimizer
+
+    cfg = dataclasses.replace(bairhd_config().gpt, n_in=512, n_proposals=4, z_len=1024)
+    torch.cuda.empty_cache()
+    ct = ContinuousTransformer(cfg, dtype=torch.bfloat16, param_dtype=torch.float32).init(seed=12)
+    randomize_pos_emb(ct.model, 13, std=0.02)
+    opt = make_transformer_optimizer(cfg, 100, ct.model)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    code = F.normalize(torch.randn(16, cfg.z_len, cfg.n_in, generator=g, device="cuda"), dim=-1)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(4):
+        if i == 1:
+            t0 = time.perf_counter()
+        ct.model.zero_grad(set_to_none=True)
+        loss, _ = ct.loss(code)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    dt = _synced_since(t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"continuous bairhd: losses {losses}")
+    n_params = sum(p.numel() for p in ct.parameters())
+    log(f"continuous bairhd: {n_params / 1e6:.1f} M parameters; loss + backward + AdamW "
+        f"{dt / 3:.4f} s a step over 3 steps (16 x 1023 inputs), peak memory {peak:.2f} GiB, "
+        f"best-proposal MSE by step {[round(x, 5) for x in losses]}; on {card}")
+    serve = ContinuousTransformer(cfg, dtype=torch.bfloat16)
+    serve.load_state_dict(ct.state_dict())
+    del ct, opt
+    n0, steps = 64, cfg.z_len - 64 - 1
+    flash_decode_attention.launches = vq_indices.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = serve.generate(code[:2, :n0], cfg.z_len, normalize_pred=True)
+    dt = _synced_since(t0)
+    launches = flash_decode_attention.launches
+    if launches != cfg.n_layer * steps or vq_indices.launches:
+        raise AssertionError(f"continuous bairhd: K2 {launches} launches (expected "
+                             f"{cfg.n_layer} x {steps}), K1 {vq_indices.launches}")
+    norms = out[:, n0:].norm(dim=-1)
+    if not (out.shape == (2, cfg.z_len, cfg.n_in) and bool(torch.isfinite(out).all())
+            and torch.equal(out[:, :n0], code[:2, :n0])
+            and float((norms - 1).abs().max()) <= 1e-2):
+        raise AssertionError(f"continuous bairhd: rollout {tuple(out.shape)}, norms "
+                             f"{float(norms.min())}-{float(norms.max())}")
+    records["flash_decode"]["launches_by_rollout"]["continuous_bairhd"] = launches
+    log(f"continuous bairhd rollout: {dt:.3f} s for {cfg.z_len - n0} vectors (batch 2, 1 prefill"
+        f" + {steps} decode steps: {1e3 * dt / steps:.2f} ms a step, all in), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K2 {launches} launches; norms "
+        f"{float(norms.min()):.4f}-{float(norms.max()):.4f} (bf16); on {card}")
+
+
+def phase_z_mult_ae(records, card):
+    """(e) The autoencoder with ``z_mult`` 2 and ``normalize_out`` at full
+    BAIR-256 width (fp32 parameters; bf16 compute in training).
+
+    First the preset's image batch (8 groups of [corrupted context, next
+    frame, distorted view], drawn after ``random.seed(cfg.seed)``) through
+    the trainer's encoder in fp32, on the card and on the CPU from the same
+    weights. The latents before the division must agree within 1e-4 of
+    the largest. On each device a latent may be NaN only where its latent
+    before the division is exactly 0: the corruption zero-fills regions,
+    the seeded init's biases are 0, and ``normalize_out`` divides a zero
+    latent by its zero norm, as the JAX package does (ROADMAP queue 3).
+    Whether such a latent stays exactly 0 depends on the convolution
+    algorithm: where one device's is 0 the other's may be rounding-sized,
+    and then one side is NaN and the other a unit vector that rounding
+    points; the first check bounds the other side's latent there. Where
+    neither is 0, each normalized latent must be within ``2 |a - b| / |b|
+    + 1e-5`` of the CPU's, the bound of ``a / |a|`` against ``b / |b|``
+    (a latent of norm 2e-8 is a direction rounding sets).
+
+    Then an extra check on 24 plain images (no elastic view, corruption or
+    flow recovery): K1 on their latents, (3072, 256) x (1024, 256), gives
+    the plain search's indices, and one image G step launches K1 once with
+    finite metrics. It runs on plain images because on the preset's batch
+    the step's ``quant_img`` is NaN wherever a latent is, in both
+    packages."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.nn.encoder import SkipEncoder
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    base = bairhd_config()
+    ae_cfg = dataclasses.replace(base.ae, z_mult=2, normalize_out=True)
+    data = dataclasses.replace(base.data, dataset="synthetic", batch_size_img=24,
+                               batch_size_vid=4)
+    preset = base.replace(name="train_ae_z_mult", ae=ae_cfg, data=data)
+    cfg = preset.replace(
+        ae=dataclasses.replace(ae_cfg, load_elastic_view=False, elastic_corruption=False,
+                               use_elastic_flow_recovery=False),
+        data=dataclasses.replace(data, load_elastic_view=False, elastic_corruption=False))
+    torch.cuda.empty_cache()
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    ae = tr.losses.ae
+
+    random.seed(preset.seed)
+    (bi, _), = _ae_batches(preset, 1, kinds=("img",))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        enc = SkipEncoder(ae_cfg, dtype=torch.float32).to(dev)
+        enc.load_state_dict(ae.encoder.state_dict())
+        raw = {}
+        enc.get_submodule(f"block{ae_cfg.num_resolutions}").register_forward_hook(
+            lambda m, i, o: raw.update(z=o))
+        with torch.no_grad():
+            z, _ = enc(to_device(bi, dev)["img"].float())
+        out[dev] = (z.double().cpu(), raw["z"].double().cpu())
+    (zg, rg), (zc, rc) = out["cuda"], out["cpu"]
+    nan_g, nan_c = torch.isnan(zg).any(-1), torch.isnan(zc).any(-1)
+    norm_g, norm_c = rg.norm(dim=-1), rc.norm(dim=-1)
+    zero_g, zero_c = norm_g == 0, norm_c == 0
+    raw_err = float((rg - rc).abs().max() / rc.abs().max())
+    ok = ~(zero_g | zero_c)
+    ratio = float(((zg - zc).norm(dim=-1)[ok]
+                   / (2 * (rg - rc).norm(dim=-1)[ok] / norm_c[ok] + 1e-5)).max())
+    across = torch.cat([norm_g[zero_c & ~zero_g], norm_c[zero_g & ~zero_c]])
+    log(f"z_mult ae: the preset's image batch (elastic corruption, {tuple(zc.shape)}) in fp32, "
+        f"card against CPU: NaN latents at {int(nan_g.sum())} (card) / {int(nan_c.sum())} (CPU) "
+        f"of {nan_c.numel()} positions, latents of norm 0 before the division "
+        f"{int(zero_g.sum())} / {int(zero_c.sum())}; where one side's is 0 the other's norm is "
+        f"{[float(f'{v:.3g}') for v in across.tolist()]} (largest norm "
+        f"{float(norm_c.max()):.3g}); latents before the division within {raw_err:.3g} of the "
+        f"largest entry (bound 1e-4), normalized ones at {ratio:.3g} of their bound; smallest "
+        f"nonzero norm {float(norm_c[~zero_c].min()):.3g}")
+    if not (torch.equal(nan_g, zero_g) and torch.equal(nan_c, zero_c)):
+        raise AssertionError("z_mult ae: a NaN latent that is not 0 / 0")
+    if not (raw_err < 1e-4 and ratio <= 1):
+        raise AssertionError(f"z_mult ae: card against CPU {raw_err} (bound 1e-4), normalized "
+                             f"{ratio} of its bound")
+
+    (bi, _), = _ae_batches(cfg, 1, kinds=("img",))
+    img = to_device(bi, "cuda")
+    with torch.no_grad():
+        z, _ = ae.encoder(img["img"].to(ae.dtype))
+    zf = z.float().reshape(-1, cfg.ae.z_size // 2)
+    norms = z.float().norm(dim=-1)
+    ties, gap = check_vq(zf, ae.quantizer.embedding.detach())
+    log(f"z_mult ae: K1 at {tuple(zf.shape)} x {tuple(ae.quantizer.embedding.shape)} on the "
+        f"latents of {img['img'].shape[0]} plain images: indices the plain search's but {ties} "
+        f"near-ties (max distance gap {gap:.3g}); latent norms {float(norms.min()):.4f}-"
+        f"{float(norms.max()):.4f}")
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError("z_mult ae: non-finite latents")
+    vq_indices.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m, _, _, _ = _ae_step(tr, state, "g", "img", img, None)
+    dt = _synced_since(t0)
+    bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+    if vq_indices.launches != 1 or bad:
+        raise AssertionError(f"z_mult ae: K1 {vq_indices.launches} launches (expected 1), "
+                             f"non-finite {bad}")
+    records["vq_argmin"]["launches_by_rollout"]["train_ae_z_mult (1 image G step)"] = 1
+    log(f"z_mult ae: the image G step {dt:.4f} s (first call), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, quant_img "
+        f"{float(m['quant_img']):.5f}, rec_img {float(m['rec_img']):.5f}; on {card}")
+
+
+def phase_gpt_variants(records, card):
+    variants_reference()
+    phase_reference_checkpoint(records, card)
+    phase_train_emb_none(records, card)
+    phase_continuous_bairhd(records, card)
+    phase_z_mult_ae(records, card)
+
+
 # ---------------- tracing a gradient difference to its kinks ----------------
 
 
@@ -2996,11 +3538,17 @@ class KinkTrace:
     KINDS = ("leaky_relu", "relu", "max_pool", "grid_sample", "vq")
 
     def __init__(self, forced=None, kinds=()):
-        self.seen, self.forced, self.kinds = [], forced, set(kinds)
+        self.seen, self.sites, self.forced, self.kinds = [], [], forced, set(kinds)
 
     def _decide(self, kind, natural):
         i = len(self.seen)
         self.seen.append((kind, natural.detach().cpu()))
+        # where the decision was taken: the innermost caller in the port
+        frame = sys._getframe(2)
+        while frame is not None and "ccvs_tpu_torch" not in frame.f_code.co_filename:
+            frame = frame.f_back
+        self.sites.append("?" if frame is None else
+                          f"{os.path.relpath(frame.f_code.co_filename)}:{frame.f_lineno}")
         if self.forced is not None and kind in self.kinds:
             k, d = self.forced[i]
             assert k == kind and d.shape == natural.shape, (i, k, kind)
@@ -3167,24 +3715,10 @@ def trace_kink(seed=6, card="cuda"):
         return float(grads[name].flatten()[index])
 
     g_card, g_cpu = entry(runs[card][0]), entry(runs["cpu"][0])
-    flips = {k: [0, 0] for k in KinkTrace.KINDS}
-    for (k, a), (_, b) in zip(rec[card], rec["cpu"]):
-        d = (a != b).reshape(a.shape[0], -1) if k != "grid_sample" else (a != b).any(-1)
-        flips[k][0] += int(d.sum())
-        flips[k][1] += d.numel()
-    f64 = {}
-    for label, forced, kinds in (("free", None, ()), ("card", rec[card], KinkTrace.KINDS),
-                                 ("cpu", rec["cpu"], KinkTrace.KINDS)):
-        f64[label] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
-                                           KinkTrace(forced, kinds), float64=True))
-    # one kind at a time from the card, the rest from the CPU; a mixed
-    # record (the card's decisions of one kind, the CPU's of the others)
-    by_kind = {}
-    for k in KinkTrace.KINDS:
-        if flips[k][0]:
-            mixed = [(kk, a if kk == k else b) for (kk, a), (_, b) in zip(rec[card], rec["cpu"])]
-            by_kind[k] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
-                                               KinkTrace(mixed, KinkTrace.KINDS), float64=True))
+    flips, _ = decisions_differing(rec[card], rec["cpu"])
+    f64 = forced_float64(tr64, state_sd, batch, entry, {"card": rec[card], "cpu": rec["cpu"]})
+    # one kind at a time from the card, the rest from the CPU
+    by_kind = forced_by_kind(tr64, state_sd, batch, entry, rec[card], rec["cpu"], flips)
     gap = abs(g_card - g_cpu)
     kink = (gap > 0 and abs(f64["card"] - g_card) <= 0.1 * gap
             and abs(f64["cpu"] - g_cpu) <= 0.1 * gap)
@@ -3198,6 +3732,45 @@ def trace_kink(seed=6, card="cuda"):
            "explained_by_kinks": kink}
     log("trace: " + json.dumps(out))
     return out
+
+
+def decisions_differing(rec_a, rec_b, sites=None):
+    """Per kind of :class:`KinkTrace` decision, ``[differing, total]`` between
+    two records of the same pass; and with ``sites`` (the calls' places), per
+    kind the first call whose decisions differ: its index, place and the
+    number differing there."""
+    flips, first = {k: [0, 0] for k in KinkTrace.KINDS}, {}
+    for i, ((k, a), (_, b)) in enumerate(zip(rec_a, rec_b)):
+        d = (a != b).reshape(a.shape[0], -1) if k != "grid_sample" else (a != b).any(-1)
+        flips[k][0] += int(d.sum())
+        flips[k][1] += d.numel()
+        if sites is not None and int(d.sum()) and k not in first:
+            first[k] = {"call": i, "at": sites[i], "differing": int(d.sum())}
+    return flips, first
+
+
+def forced_float64(tr64, state_sd, batch, entry, records):
+    """``entry`` of the float64 gradient from ``state_sd`` with every
+    decision free, and with all decisions forced to each of ``records``
+    (label -> record)."""
+    out = {"free": entry(_g_vid_gradient(tr64, state_sd, batch, "cpu", KinkTrace(),
+                                         float64=True))}
+    for label, rec in records.items():
+        out[label] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
+                                           KinkTrace(rec, KinkTrace.KINDS), float64=True))
+    return out
+
+
+def forced_by_kind(tr64, state_sd, batch, entry, rec_one, rec_rest, flips):
+    """``entry`` of the float64 gradient with ``rec_one``'s decisions of one
+    kind and ``rec_rest``'s of the others, for each kind where they differ."""
+    by_kind = {}
+    for k in KinkTrace.KINDS:
+        if flips[k][0]:
+            mixed = [(kk, a if kk == k else b) for (kk, a), (_, b) in zip(rec_one, rec_rest)]
+            by_kind[k] = entry(_g_vid_gradient(tr64, state_sd, batch, "cpu",
+                                               KinkTrace(mixed, KinkTrace.KINDS), float64=True))
+    return by_kind
 
 
 FP32_FLAGS = ("torch.backends.fp32_precision", "torch.backends.cudnn.fp32_precision",
@@ -3415,28 +3988,9 @@ def conditioning(seed=6, draws=6, card="cuda"):
     (``decoder.block1.conv2.conv.bias[4]``), as one ``conditioning:`` JSON
     line."""
     import contextlib
-    import copy
 
-    import torch
-    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
-
-    random.seed(seed)
-    snap = {}
-
-    def on_step(when, it, kind, mode, a, b):
-        if when == "before" and (it, kind, mode) == (0, "g", "vid"):
-            snap["sd"], snap["batch"] = _to_cpu(a.state_dict()), _to_cpu(b)
-
-    try:
-        phase_ae_reference(on_step)
-    except AssertionError as e:
-        log(f"conditioning: phase 11 (a) at data seed {seed} fails: {str(e)[:200]}")
-    cfg = small_ae_config()
-    trs = {dev: FrameAutoencoderTrainer(cfg, dtype=torch.float32, device=dev)
-           for dev in (card, "cpu")}
-    tr64 = FrameAutoencoderTrainer(cfg, dtype=torch.float64, device="cpu")
-    for tr in (trs[card], tr64):
-        tr.losses.vgg.load_state_dict(trs["cpu"].losses.vgg.state_dict())
+    snap = g_vid_snapshot(seed, "conditioning")
+    trs, tr64 = _g_vid_trainers(card)
     none = contextlib.nullcontext()
 
     def grad(tr, dev, sd, f64=False):
@@ -3455,14 +4009,108 @@ def conditioning(seed=6, draws=6, card="cuda"):
            "card_fp32": gap(grad(trs[card], card, snap["sd"])),
            "cpu_fp32": gap(grad(trs["cpu"], "cpu", snap["sd"])), "perturbed": []}
     for d in range(draws):
-        g = torch.Generator().manual_seed(d)
-        sd = copy.deepcopy(snap["sd"])
-        for k, v in sd["gen"].items():
-            if v.is_floating_point():
-                sd["gen"][k] = v * (1 + 6e-8 * torch.randn(v.shape, generator=g))
+        sd = perturbed(snap["sd"], d)
         out["perturbed"].append({"float64": gap(grad(tr64, "cpu", sd, True)),
                                  "cpu_fp32": gap(grad(trs["cpu"], "cpu", sd))})
     log("conditioning: " + json.dumps(out))
+    return out
+
+
+def g_vid_snapshot(seed, label):
+    """The card's inputs of iteration 0's video G step of phase 11 (a) at data
+    seed ``seed``: ``{"sd": train state, "batch": batch}`` on the CPU."""
+    random.seed(seed)
+    snap = {}
+
+    def on_step(when, it, kind, mode, a, b):
+        if when == "before" and (it, kind, mode) == (0, "g", "vid"):
+            snap["sd"], snap["batch"] = _to_cpu(a.state_dict()), _to_cpu(b)
+
+    try:
+        phase_ae_reference(on_step)
+    except AssertionError as e:
+        log(f"{label}: phase 11 (a) at data seed {seed} fails: {str(e)[:200]}")
+    return snap
+
+
+def _g_vid_trainers(card):
+    """Phase 11 (a)'s trainers in fp32 on the card and the CPU and in
+    float64 on the CPU, all with the CPU's seeded VGG."""
+    import torch
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
+
+    cfg = small_ae_config()
+    trs = {dev: FrameAutoencoderTrainer(cfg, dtype=torch.float32, device=dev)
+           for dev in (card, "cpu")}
+    tr64 = FrameAutoencoderTrainer(cfg, dtype=torch.float64, device="cpu")
+    for tr in (trs[card], tr64):
+        tr.losses.vgg.load_state_dict(trs["cpu"].losses.vgg.state_dict())
+    return trs, tr64
+
+
+def perturbed(state_sd, draw):
+    """``state_sd`` with every floating generator parameter multiplied by
+    ``1 + 6e-8 n``, n standard normal from seed ``draw``: one fp32
+    rounding's size."""
+    import copy
+
+    import torch
+
+    g = torch.Generator().manual_seed(draw)
+    sd = copy.deepcopy(state_sd)
+    for k, v in sd["gen"].items():
+        if v.is_floating_point():
+            sd["gen"][k] = v * (1 + 6e-8 * torch.randn(v.shape, generator=g))
+    return sd
+
+
+def kink_conditioning(seed=6, draws=6, card="cuda"):
+    """Fault 4's next step: the decisions that flip between two CPU fp32
+    passes of phase 11 (a)'s iteration-0 video G step at data seed ``seed``
+    whose inputs differ by one fp32 rounding. From the card's saved inputs,
+    the CPU runs unperturbed and, for each draw ``d`` < ``draws``, with the
+    parameters of :func:`perturbed` (the draws of :func:`conditioning`),
+    each pass's decisions recorded with their places (:class:`KinkTrace`).
+    Per draw: the traced entry (``decoder.block1.conv2.conv.bias[4]``) in
+    both passes over the step's largest, the decisions that differ by kind
+    and the first of each by place, and float64 from the perturbed
+    parameters with all of the unperturbed pass's decisions, all of the
+    perturbed pass's, and the perturbed pass's of one kind at a time. Prints
+    one ``kink-conditioning:`` JSON line."""
+    snap = g_vid_snapshot(seed, "kink-conditioning")
+    trs, tr64 = _g_vid_trainers(card)
+    name, index = "decoder.block1.conv2.conv.bias", 4
+
+    def entry(grads):
+        return float(grads[name].flatten()[index])
+
+    def traced(sd):
+        trace = KinkTrace()
+        grads = _g_vid_gradient(trs["cpu"], sd, snap["batch"], "cpu", trace)
+        return grads, trace
+
+    g0, t0 = traced(snap["sd"])
+    scale = max(float(g.abs().max()) for g in g0.values())
+    out = {"seed": seed, "step_largest": scale, "unperturbed_cpu": entry(g0) / scale,
+           "card": entry(_g_vid_gradient(trs[card], snap["sd"], snap["batch"], card,
+                                         KinkTrace())) / scale, "draws": []}
+    for d in range(draws):
+        sd = perturbed(snap["sd"], d)
+        g1, t1 = traced(sd)
+        flips, first = decisions_differing(t0.seen, t1.seen, t1.sites)
+        row = {"draw": d, "perturbed_cpu": entry(g1) / scale,
+               "decisions_differing": {k: v for k, v in flips.items() if v[0]},
+               "first_differing": first}
+        if any(v[0] for v in flips.values()):
+            f64 = forced_float64(tr64, sd, snap["batch"], entry,
+                                 {"unperturbed": t0.seen, "perturbed": t1.seen})
+            row["float64"] = {k: v / scale for k, v in f64.items()}
+            row["float64_perturbed_decisions_of_one_kind"] = {
+                k: v / scale for k, v in forced_by_kind(tr64, sd, snap["batch"], entry, t1.seen,
+                                                        t0.seen, flips).items()}
+        out["draws"].append(row)
+        log(f"kink-conditioning draw {d}: " + json.dumps(row))
+    log("kink-conditioning: " + json.dumps(out))
     return out
 
 
@@ -3559,6 +4207,8 @@ def main():
         phase_generate(records, card)
     with phase("13 ADA and layouts"):
         phase_ada_layouts(records, card)
+    with phase("14 GPT variants and reference checkpoints"):
+        phase_gpt_variants(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3575,6 +4225,10 @@ if __name__ == "__main__":
         conv_precision_probe()
         trace_ops(int(sys.argv[2]) if len(sys.argv) > 2 else 6,
                   sys.argv[3] if len(sys.argv) > 3 else "port")
+    elif sys.argv[1:2] == ["kink-conditioning"]:
+        # python3 chip_smoke.py kink-conditioning [SEED [DRAWS]]: see kink_conditioning
+        kink_conditioning(int(sys.argv[2]) if len(sys.argv) > 2 else 6,
+                          int(sys.argv[3]) if len(sys.argv) > 3 else 6)
     elif sys.argv[1:2] == ["conditioning"]:
         # python3 chip_smoke.py conditioning [SEED]: see conditioning
         conditioning(int(sys.argv[2]) if len(sys.argv) > 2 else 6)

@@ -11,7 +11,7 @@ import torch
 
 from ccvs_tpu_torch.config import AutoencoderConfig, Config, TransformerConfig
 from ccvs_tpu_torch.generate import VideoGenerator
-from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
+from ccvs_tpu_torch.models import ContinuousTransformer, FrameAutoencoder, TokenTransformer
 from ccvs_tpu_torch.nn.quantized import int8_matmul
 from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
 from ccvs_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
@@ -34,7 +34,8 @@ def cuda():
                                    (640, 16384, 256), (128, 1024, 512), (64, 128, 1),
                                    (3072, 16384, 256), (5760, 1024, 512), (1440, 1024, 16),
                                    (128, 1024, 16), (16384, 1024, 512), (6144, 1024, 512),
-                                   (192, 128, 1), (1536, 1024, 512), (1024, 1024, 512)])
+                                   (192, 128, 1), (1536, 1024, 512), (1024, 1024, 512),
+                                   (3072, 1024, 256)])
 def test_vq_kernel_matches_plain(cuda, n, k, d):
     """K1 on the card: indices equal to the plain version's, near-ties aside.
     The shapes of the rollouts: BAIR's encode (2048) and context re-encode
@@ -46,7 +47,8 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
     full-width BAIR step's encode of 16 clips of 16 frames (16384), the
     state step's of 96 images (6144) and its quantizer of 96 x 2 states
     (192 rows, depth 1), and the autoencoder's image G step (24 images:
-    1536) and video G step (4 clips of 4 frames: 1024)."""
+    1536; with z_mult 2, 3072 rows of 256) and video G step (4 clips of 4
+    frames: 1024)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.randn(n, d, device=cuda, generator=g)
     cb = torch.randn(k, d, device=cuda, generator=g)
@@ -255,6 +257,29 @@ def test_generate_on_gpu_matches_cpu(cuda):
     assert got["fake"].is_cuda
     assert torch.equal(got["code"].cpu(), want["code"])
     assert float((got["fake"].cpu() - want["fake"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("proposals,normalize", [(1, False), (3, True)])
+def test_continuous_generate_on_gpu_matches_cpu(cuda, proposals, normalize):
+    """``ContinuousTransformer.generate`` in fp32 through K2 (GPU) against
+    the plain attention (CPU), from the same seeded weights: the rollout
+    within 1e-4 of its largest entry, K2 once a layer a decode step."""
+    cfg = TransformerConfig(z_len=128, n_layer=2, n_head=2, n_embd=128, n_in=16,
+                            n_proposals=proposals)
+    ct = ContinuousTransformer(cfg, dtype=torch.float32, device=cuda).init(seed=3)
+    with torch.no_grad():  # non-zero positional embeddings
+        ct.model.pos_emb.normal_(0.0, 0.02, generator=torch.Generator(device=cuda).manual_seed(4))
+    code = torch.randn(2, 9, 16, generator=torch.Generator().manual_seed(5))
+    before = flash_decode_attention.launches
+    got = ct.generate(code.to(cuda), 40, normalize_pred=normalize)
+    assert flash_decode_attention.launches - before == 2 * (40 - 9 - 1)
+    cpu = ContinuousTransformer(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in ct.state_dict().items()})
+    want = cpu.generate(code, 40, normalize_pred=normalize)
+    assert got.is_cuda and got.shape == want.shape == (2, 40, 16)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
 
 
 @pytest.mark.gpu
