@@ -6,9 +6,8 @@ variants, Kinetics-600, UCF-101 and the audio-conditioned drums,
 ``config.py:470-696`` there).
 
 Fields keep the JAX package's names and defaults. Only the fields the port
-reads are here, and the data group whole: the autoencoder options no preset
-sets (``no_corr``, ``skip_rgb``, ``keep_first``, deformable convolutions,
-...) come with the slices that need them.
+reads are here, and the data group whole; :data:`JAX_ONLY_DEFAULTS` lists
+the others, which load only at the JAX package's defaults.
 """
 
 import dataclasses
@@ -125,10 +124,46 @@ class AutoencoderConfig:
     # no quantizer and no quantization loss (the latent that feeds a
     # continuous GPT)
     is_continuous: bool = False
+    # frames are max_dim x int(max_dim * aspect_ratio); z_shape is the
+    # user's to match (e.g. (8, 16) at 2)
+    aspect_ratio: float = 1.0
     # context ("inter") features: this share of the channels at each resolution
     inter_p: float = 0.75
     skip_context: Tuple[int, ...] = tuple(range(1, 16))
     skip_memory: int = 15
+
+    # the decoder's flow module (nn/decoder.py): False builds no InterBlocks
+    # and decodes without context fusion
+    use_inter: bool = True
+    # Matching without the cost volume (a conv over [x, warped context]),
+    # or the cost volume on the unprojected features
+    no_corr: bool = False
+    no_proj: bool = False
+    # the warped context times 1 - sigmoid(occlusion)
+    use_masked_flow: bool = False
+    # a 3x3 deformable conv at the flow's offset instead of the warp
+    use_deformed_conv: bool = False
+    # Subpixel's 32 features, upsampled, added to the next resolution's
+    # warped context (every inter_sizes_dec entry a multiple of 32)
+    use_tradeoff: bool = False
+    # an RGB head after every resolution, summed up the resolutions, in
+    # place of the last 1x1 conv; then optionally tanh
+    skip_rgb: bool = False
+    skip_tanh: bool = False
+    # the rollout's new context: the re-encoded frame ("enc") or the
+    # decoder's own fused features ("dec", decode_video only)
+    skip_mode: str = "enc"
+    # once the FIFO is full, its first n_first slots stay pinned
+    keep_first: bool = False
+    n_first: int = 1
+    # the decoder's concat convs compute their x block once per batch
+    # element; False tiles x over the contexts (the same math in another
+    # order, for A/B)
+    shared_x_split: bool = True
+    # the JAX package's static slot buckets of the rollout; the port slices
+    # the FIFO to min(curr, skip_memory) slots, which gives the same result
+    # (masked slots weigh 0), and reads this nowhere
+    decode_buckets: Tuple[int, ...] = (2, 4, 8)
 
     # training (train/ae_losses.py, train/states.py, train/steps.py); the
     # discriminators' widths are ``ndcf * ndcf_mult``
@@ -192,6 +227,11 @@ class AutoencoderConfig:
     # recompute the encoder, decoder, VGG and discriminators in the backward
     # pass instead of keeping their activations
     remat: bool = False
+
+    def __post_init__(self):
+        if self.use_tradeoff and any(s % 32 for s in self.inter_sizes_dec):
+            raise ValueError(f"use_tradeoff needs every inter_sizes_dec entry a multiple of 32 "
+                             f"(its 32-group upsampler); got {self.inter_sizes_dec}")
 
     @property
     def num_resolutions(self) -> int:
@@ -339,19 +379,25 @@ class StftConfig:
 # The JAX package's config fields that the port does not have, by group
 # (``config`` for the top level), with their defaults there: options of
 # slices not ported yet (``ROADMAP.md``, queue 1), the JAX package's own
-# knobs, and fields that neither package reads (``ae.use_q_anyway``,
-# ``gpt.is_continuous``, ``gpt.embd_pdrop``: the caller picks
+# knobs, and fields that neither package reads (the caller picks
 # ``ContinuousTransformer``), so that a value they would ignore raises.
 # ``tests/test_torch_generate.py`` holds this table to
 # ``dataclasses.fields`` of ``ccvs_tpu/config.py``.
 JAX_ONLY_DEFAULTS = {
     "ae": {
-        "aspect_ratio": 1.0, "use_inter": True, "no_corr": False, "no_proj": False,
-        "use_masked_flow": False, "use_deformed_conv": False, "use_tradeoff": False,
-        "skip_rgb": False, "skip_tanh": False, "skip_mode": "enc", "keep_first": False,
-        "n_first": 1, "shared_x_split": True, "decode_buckets": (2, 4, 8),
-        "serve_fused": False, "weight_decay": 0.0, "use_quant_loss_vid": False,
-        "decoder_only": False, "dtype": "bfloat16", "use_q_anyway": False,
+        # the JAX package's one-jit decode (its cli.py --fused); the port's
+        # decode is eager
+        "serve_fused": False,
+        # read by no JAX module: make_ae_optimizers builds plain Adam
+        "weight_decay": 0.0,
+        # read by no JAX module: the video G step adds its quantization loss
+        "use_quant_loss_vid": False,
+        # read by no JAX module outside its config
+        "decoder_only": False,
+        # read by no JAX module: the caller gives the compute dtype
+        "dtype": "bfloat16",
+        # read by no JAX module outside its config
+        "use_q_anyway": False,
     },
     "gpt": {"dtype": "bfloat16", "is_continuous": False, "embd_pdrop": 0.0},
     "state": {"quantize_only": False},

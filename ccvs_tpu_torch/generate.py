@@ -268,7 +268,7 @@ class VideoGenerator:
                                     extra_ctx=cond_inter)
             # re-encode: fresh context features and the frame's own tokens
             new_enc = ae.encode(frame)
-            fifo = ae.fifo_push(fifo, new_enc["inter"])
+            fifo = ae.fifo_push(fifo, new_enc["inter"], curr, cfg.ae.keep_first, cfg.ae.n_first)
             new_code = new_enc["code"].reshape(b, -1)
             if fixed_shape:
                 merged[:, n:n + size] = new_code

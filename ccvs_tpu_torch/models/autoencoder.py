@@ -75,9 +75,11 @@ class FrameAutoencoder(nn.Module):
     # ---------------- shapes ----------------
 
     def inter_shapes(self, batch):
-        """Per-resolution context feature shapes, finest first."""
-        h = self.cfg.max_dim
-        return [(batch, h // 2**i, h // 2**i, c) for i, c in enumerate(self.cfg.inter_sizes_enc)]
+        """Per-resolution context feature shapes, finest first, of frames of
+        ``max_dim x int(max_dim * aspect_ratio)``."""
+        cfg = self.cfg
+        h, w = cfg.max_dim, int(cfg.max_dim * cfg.aspect_ratio)
+        return [(batch, h // 2**i, w // 2**i, c) for i, c in enumerate(cfg.inter_sizes_enc)]
 
     def _zero_inters(self, batch, slots):
         return [torch.zeros(s[0], slots, *s[1:], dtype=self.dtype, device=self.device)
@@ -146,28 +148,41 @@ class FrameAutoencoder(nn.Module):
 
     # ---------------- single-frame decode ----------------
 
-    def decode_frame(self, z, inter_fifo, fifo_mask, extra_ctx=None):
+    def decode_frame(self, z, inter_fifo, fifo_mask, extra_ctx=None, with_inter=False):
         """Decode one frame ``z`` ``(B, h, w, z_size)`` against the context
         FIFO (per resolution ``(B, M, h_r, w_r, c_r)``, slot ``M-1`` the most
         recent) with slot validity ``fifo_mask`` ``(B, M)``; returns the RGB
-        frame ``(B, H, W, 3)``. ``extra_ctx`` (per resolution ``(B, h_r, w_r,
-        c_r)``, the point-to-point end frame's features) is one more context
-        slot after the FIFO's, always valid."""
+        frame ``(B, H, W, 3)``, and with ``with_inter`` also the decoder's
+        fused context-sized features per resolution, finest first (the new
+        context of ``skip_mode`` "dec"). ``extra_ctx`` (per resolution ``(B,
+        h_r, w_r, c_r)``, the point-to-point end frame's features) is one
+        more context slot after the FIFO's, always valid."""
         if extra_ctx is not None:
             inter_fifo = [torch.cat([f, e[:, None].to(f.dtype)], dim=1)
                           for f, e in zip(inter_fifo, extra_ctx)]
             fifo_mask = torch.cat([fifo_mask, fifo_mask.new_ones(fifo_mask.shape[0], 1)], dim=1)
-        return self.decoder(z.to(self.dtype), inter_fifo, ctx_mask=fifo_mask)
+        if not with_inter:
+            return self.decoder(z.to(self.dtype), inter_fifo, ctx_mask=fifo_mask)
+        rgb, _, _, _, inter_dec = self.decoder(z.to(self.dtype), inter_fifo, ctx_mask=fifo_mask,
+                                               return_all=True, inter_pre_warping=False)
+        return rgb, inter_dec[::-1]
 
     def refresh_inter(self, rgb):
         """Re-encode a decoded frame for fresh context features."""
         return self.encoder(rgb.to(self.dtype))[1]
 
     @staticmethod
-    def fifo_push(inter_fifo, new_inter):
-        """Shift the FIFO left and append ``new_inter`` at the last slot."""
-        return [torch.cat([fifo[:, 1:], new[:, None].to(fifo.dtype)], dim=1)
-                for fifo, new in zip(inter_fifo, new_inter)]
+    def fifo_push(inter_fifo, new_inter, curr=0, keep_first=False, n_first=1):
+        """Shift the FIFO left and append ``new_inter`` at the last slot; with
+        ``keep_first``, once ``curr`` (the frames decoded so far) fills the
+        FIFO, its first ``n_first`` slots stay and the slot after them goes
+        (``quantized_video_model.py:895-902``)."""
+        out = []
+        for fifo, new in zip(inter_fifo, new_inter):
+            keep = fifo[:, :n_first] if keep_first and curr >= fifo.shape[1] else fifo[:, :0]
+            out.append(torch.cat([keep, fifo[:, keep.shape[1] + 1:], new[:, None].to(fifo.dtype)],
+                                 dim=1))
+        return out
 
     def fifo_mask(self, batch, curr, slots=None):
         """``(B, slots)`` validity: slot ``s`` (dt = slots - s) is valid iff
@@ -180,25 +195,34 @@ class FrameAutoencoder(nn.Module):
 
     def _decode_step_fn(self, fifo, curr, z_t, kb=None, extra_ctx=None):
         """Decode frame ``z_t`` against the last ``kb`` FIFO slots (default,
-        or 0: all of them) and ``extra_ctx``, then refresh the context and
-        push it. Slots with ``dt > curr`` are invalid, so ``kb = min(curr,
-        M)`` gives the result of the whole FIFO."""
+        or 0: all of them) and ``extra_ctx``, then push the new context: the
+        re-encoded frame, or with ``skip_mode`` "dec" the decoder's fused
+        features. Slots with ``dt > curr`` are invalid, so ``kb = min(curr,
+        M)`` gives the result of the whole FIFO (the JAX package's
+        ``decode_buckets`` round ``kb`` up; the masked slots weigh 0)."""
+        cfg = self.cfg
         m = fifo[0].shape[1]
         kb = kb or m
         fifo_k = [f[:, m - kb:] for f in fifo] if kb < m else fifo
-        rgb = self.decode_frame(z_t, fifo_k, self.fifo_mask(z_t.shape[0], curr, slots=kb),
-                                extra_ctx)
-        return self.fifo_push(fifo, self.refresh_inter(rgb)), rgb
+        mask = self.fifo_mask(z_t.shape[0], curr, slots=kb)
+        if cfg.skip_mode == "enc":
+            rgb = self.decode_frame(z_t, fifo_k, mask, extra_ctx)
+            new_inter = self.refresh_inter(rgb)
+        else:
+            rgb, new_inter = self.decode_frame(z_t, fifo_k, mask, extra_ctx, with_inter=True)
+        return self.fifo_push(fifo, new_inter, curr, cfg.keep_first, cfg.n_first), rgb
 
     @torch.no_grad()
     def decode_video(self, codes, ctx_frames=None, n_ctx=1, cond_inter=None):
         """Decode tokens ``codes`` ``(B, T, h*w)`` autoregressively in image
         space: the ``n_ctx`` context frames against their own (encoded)
         context features, then each later frame against the FIFO of the
-        re-encoded frames before it, and ``cond_inter`` (the end frame's
-        context features in point-to-point mode), an extra slot at every
-        step. With it, every frame decodes against all M FIFO slots, as the
-        JAX package does. Returns ``(B, T, H, W, 3)``."""
+        re-encoded frames before it (their decoder features with
+        ``skip_mode`` "dec"; the first ``n_first`` pinned with
+        ``keep_first``), and ``cond_inter`` (the end frame's context
+        features in point-to-point mode), an extra slot at every step. With
+        it, every frame decodes against all M FIFO slots, as the JAX package
+        does. Returns ``(B, T, H, W, 3)``."""
         cfg = self.cfg
         b, t = codes.shape[:2]
         m = cfg.skip_memory
@@ -273,8 +297,8 @@ class FrameAutoencoder(nn.Module):
                 new_interl = self.encoder_l(self.one_hot_layout(seg).to(self.dtype))[1]
             else:
                 new_interl = [f[:, curr - n_ctx] for f in interl_gen]
-            fifo = self.fifo_push(fifo, self.merge_layout_inters(self.refresh_inter(rgb),
-                                                                 new_interl))
+            new_inter = self.merge_layout_inters(self.refresh_inter(rgb), new_interl)
+            fifo = self.fifo_push(fifo, new_inter, curr, cfg.keep_first, cfg.n_first)
             frames.append(rgb[:, None])
             lays.append(lay[:, None])
         return torch.cat(frames, dim=1), torch.cat(lays, dim=1)

@@ -5,8 +5,9 @@ latent-feature discriminator, NHWC / NTHWC.
 The minibatch-stddev groups are formed within the batch a call is given, as
 the reference forms them within each GPU's. Flattening before ``fc1`` goes
 through the (C, H, W) order of the reference's NCHW tensors, which ``fc1``'s
-weight was laid out for. Frames are square (``aspect_ratio`` 1, that of
-every preset).
+weight was laid out for. Frames are ``max_dim x int(max_dim *
+aspect_ratio)``: the image and video discriminators end at ``4 x int(4 *
+aspect_ratio)``.
 """
 
 import math
@@ -31,7 +32,8 @@ def _channel_major(out):
 
 class ImageDiscriminator(nn.Module):
     """StyleGAN2 image discriminator: a 1x1 conv, a residual downsampling
-    block per resolution down to 4x4, the minibatch-stddev channel, a 3x3
+    block per resolution down to 4 x int(4 * aspect_ratio), the
+    minibatch-stddev channel, a 3x3
     conv and two linear layers. ``(B, H, W, 3)`` -> ``(B, 1)``."""
 
     def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
@@ -49,7 +51,8 @@ class ImageDiscriminator(nn.Module):
             self.add_module(f"res{i}", ResBlockD(block_in, block_out, **kw))
             block_in = block_out
         self.final_conv = ConvLayerD(block_in + 1, block_in, 3, **kw)
-        self.fc1 = EqualLinear(block_in * 4 * 4, block_in, activation="fused_lrelu", **kw)
+        self.fc1 = EqualLinear(block_in * 4 * int(4 * cfg.aspect_ratio), block_in,
+                               activation="fused_lrelu", **kw)
         self.fc2 = EqualLinear(block_in, 1, **kw)
 
     def forward(self, x):
@@ -92,8 +95,8 @@ class VideoDiscriminator(nn.Module):
                 len_t -= 2
             block_in = block_out
         self.final_conv = ConvLayer3D(block_in + 1, block_in, 3, **kw)
-        self.fc1 = EqualLinear(block_in * 4 * 4 * len_t, block_in, activation="fused_lrelu",
-                               **kw)
+        self.fc1 = EqualLinear(block_in * 4 * int(4 * cfg.aspect_ratio) * len_t, block_in,
+                               activation="fused_lrelu", **kw)
         self.fc2 = EqualLinear(block_in, 1, **kw)
 
     def forward(self, x):

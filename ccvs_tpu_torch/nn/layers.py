@@ -317,8 +317,8 @@ def minibatch_stddev_3d(x, group_size, stddev_feat=1):
 def init_equalized(module, generator):
     """flax's initializers, seeded: equalized conv weights N(0, 1), linear
     weights N(0, 1 / lr_mul), grouped upsamplers N(0, 0.02) (any module with
-    ``init_std``); biases 0, or a linear layer's ``bias_init``. Returns
-    ``module``."""
+    ``init_std``), deformable conv weights N(0, ``deform_std``); biases 0, or
+    a linear layer's ``bias_init``. Returns ``module``."""
     for m in module.modules():
         if isinstance(m, (EqualConv2d, EqualConv3d)):
             m.weight.normal_(0.0, 1.0, generator=generator)
@@ -329,6 +329,9 @@ def init_equalized(module, generator):
             continue
         elif hasattr(m, "init_std"):
             m.weight.normal_(0.0, m.init_std, generator=generator)
+        elif hasattr(m, "deform_std"):  # the decoder's deformable conv (He normal)
+            m.deform_weight.normal_(0.0, m.deform_std, generator=generator)
+            m.deform_bias.zero_()
         for name in ("bias", "act_bias"):
             p = getattr(m, name, None)
             if isinstance(p, nn.Parameter):

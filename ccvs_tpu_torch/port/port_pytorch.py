@@ -31,9 +31,10 @@ Usage::
     pp.load_ported(autoencoder, pp.port_autoencoder(cfg.ae, sds))
     pp.load_ported(transformer.model, pp.port_gpt(cfg.gpt, sds["transformer_t"]))
 
-The ``cfg`` arguments are the port's config groups. The decoder options the
-port does not have yet (``use_tradeoff``, ``no_corr``, ``no_proj``,
-``use_inter`` off) cannot be set there: ``Config.from_json`` raises on them.
+The ``cfg`` arguments are the port's config groups. :func:`port_decoder`
+maps ``use_tradeoff``, ``no_corr``, ``no_proj`` and ``use_inter`` off as the
+JAX package does; it raises on ``use_deformed_conv`` and ``skip_rgb``,
+whose parameters neither package maps from the reference's keys.
 """
 
 import math
@@ -116,15 +117,18 @@ def port_encoder(cfg, sd):
     return out
 
 
-def _matching(sd, prefix, feat_size, first, corr_stride):
+def _matching(cfg, sd, prefix, feat_size, first, corr_stride):
     out = {}
     if not first:
         out["upsample_flow"] = {"weight": sd[f"{prefix}.upsample_flow.weight"]}
         out["upsample_occ"] = {"weight": sd[f"{prefix}.upsample_occ.weight"]}
-    if feat_size > 16:
-        out["proj"] = _convlayer(sd, f"{prefix}.proj")
-    if corr_stride != 1:
-        out["upsample_corr"] = {"weight": sd[f"{prefix}.upsample_corr.weight"]}
+        if cfg.use_tradeoff:
+            out["upsample_toff"] = {"weight": sd[f"{prefix}.upsample_toff.weight"]}
+    if not cfg.no_corr:
+        if feat_size > 16 and not cfg.no_proj:
+            out["proj"] = _convlayer(sd, f"{prefix}.proj")
+        if corr_stride != 1:
+            out["upsample_corr"] = {"weight": sd[f"{prefix}.upsample_corr.weight"]}
     for i in range(3):
         out[f"convs{i}"] = _convlayer(sd, f"{prefix}.convs.{i}")
     out["flow_head"] = _convlayer(sd, f"{prefix}.flow_head")
@@ -141,9 +145,16 @@ def _subpixel(sd, prefix):
 
 def port_decoder(cfg, sd):
     """``qvid_g`` (or ``qvid_gl``) state dict -> the SkipDecoder tree, with
-    its ``Matching`` and ``Subpixel`` heads. ``cfg`` is the port's
-    ``AutoencoderConfig``: ``Config.from_json`` refuses a config that sets
-    ``use_tradeoff``, ``no_corr``, ``no_proj`` or ``use_inter`` off."""
+    its ``Matching`` and ``Subpixel`` heads, under ``cfg``'s (the port's
+    ``AutoencoderConfig``) ``use_tradeoff`` (``upsample_toff``), ``no_corr``
+    and ``no_proj`` (no ``proj`` or ``upsample_corr``), and ``use_inter``
+    off (no ``inter_block*``), as the JAX package maps them. The JAX
+    package maps no key of the deformable conv (``use_deformed_conv``) or of
+    the skip-RGB heads (``skip_rgb``), so neither is ported: they raise."""
+    for opt in ("use_deformed_conv", "skip_rgb"):
+        if getattr(cfg, opt):
+            raise ValueError(f"port_decoder: {opt} has no key map from the reference's "
+                             f"state dict (none in ccvs_tpu/port/port_pytorch.py either)")
     sd = _arrays(sd)
     n = cfg.num_resolutions
     sched = interblock_schedule(n)
@@ -152,12 +163,13 @@ def port_decoder(cfg, sd):
         out[f"block{i}"] = _resblock(sd, f"blocks.{i}")
     if f"blocks.{n}.0.weight" in sd:
         out[f"block{n}"] = _convlayer(sd, f"blocks.{n}")
-    for i in range(n):
-        out[f"inter_block{i}"] = {
-            "matching": _matching(sd, f"inter_blocks.{i}.matching", cfg.inter_sizes_dec[i],
-                                  i == 0, sched[i]["corr_stride"]),
-            "subpixel": _subpixel(sd, f"inter_blocks.{i}.subpixel"),
-        }
+    if cfg.use_inter:
+        for i in range(n):
+            out[f"inter_block{i}"] = {
+                "matching": _matching(cfg, sd, f"inter_blocks.{i}.matching",
+                                      cfg.inter_sizes_dec[i], i == 0, sched[i]["corr_stride"]),
+                "subpixel": _subpixel(sd, f"inter_blocks.{i}.subpixel"),
+            }
     return out
 
 

@@ -27,6 +27,12 @@ read with numpy alone. Translation:
   (``tok_emb/kernel``, transposed, and ``tok_emb/bias``) and its head one
   without bias (``head/kernel``); only Dense kernels are transposed.
 
+The autoencoder's decoder options keep the JAX package's names both ways:
+``inter_block{i}/matching/deform_weight`` and ``deform_bias`` (the
+deformable conv), ``matching/upsample_toff/weight`` (the tradeoff
+features), ``to_rgb{i}/conv/conv/*`` and ``to_rgb{i}/bias`` (skip-RGB);
+with ``use_inter`` off there is no ``inter_block*`` on either side.
+
 One flat dict of a whole serving set (``ae/...``, ``gpt/...``, ``state/...``,
 ``stft/...``) loads model by model with ``prefix``. The discriminators
 (``di/...``, ``dv/...``, ``df/...`` into an ``nn.ModuleDict`` of them) and

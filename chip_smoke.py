@@ -140,7 +140,24 @@ Phases, each printing its wall time:
    image batch, card against CPU from the same weights (NaN at the same
    positions, only where the latent is 0 before the division; the rest
    within fp32 tolerance), then 24 plain images: K1 at (3072, 256) x (1024,
-   256) against the plain search and one image G step (K1 once).
+   256) against the plain search and one image G step (K1 once);
+15. autoencoder options: (a) small fp32 decoders under each option set of
+   ``AE_OPTION_SETS`` (k = 3 smooth contexts, a partial mask),
+   ``deform_conv3x3`` with its input and offset gradients, and
+   ``decode_video`` with ``keep_first`` (``n_first`` 2, pinned) and with
+   ``skip_mode`` "dec", card against CPU within 1e-5 of the largest entry,
+   a planted fault (the deformable conv's ky and kx taps swapped) caught,
+   and the image G step under set A held to the CPU step by step for 2
+   iterations; (b) full-width BAIR-256 with set A (deformable conv, masked
+   flow, tradeoff, skip-RGB, ``tanh``): an 8-frame rollout (K1 2, K2 24 x
+   448), its decode stage alone, and an AE iteration with R1 at 24 images
+   and 4 clips (K1 2), each step timed; (c) set B (``no_corr``,
+   ``skip_mode`` "dec", ``keep_first`` with ``n_first`` 2, the tiled-x
+   convs): the rollout, its decode stage a frame beside set A's, the
+   preset's and phase 3's, and a 17-frame decode that pins the FIFO; (d)
+   ``aspect_ratio`` 2 (256 x 512, ``z_shape`` (8, 16), ``no_proj``): K1 at
+   (3072, 512) x (1024, 512) against the plain search, one image G step (K1
+   once) and one image D step at 24 images, timed, with the peak memory.
 
 Phase 0 prints the card's name and power limit; the last three lines are the
 kernels' JSON record, the card line again, and the result line ``{"ok":
@@ -177,6 +194,7 @@ BATCH, VID_LEN = 2, 16
 # script within half its time limit; phases 3 and 4 roll out at full depth
 MODE_LEN, DRUMS_LEN = 8, 24
 ROLLOUT_S = {}  # the wall time of each rollout of run_path, by name
+DECODE_S = {}  # phase_rollout's warm-up decode stage, seconds a generated frame, by name
 KINETICS_LEN = 24  # frames: past the 20 of the 1280-token window, so it slides
 
 
@@ -318,7 +336,9 @@ def phase_kernels(records):
     # the layout rollout's (2048, 512) and its context's (128, 512), the AE
     # iteration's (1536, 512) and (1024, 512), the transformer step's 2 clips
     # (2048, 512), all against a codebook of 1024; phase 14's image G step
-    # with z_mult 2 splits each of its 1536 latents in two: (3072, 256)
+    # with z_mult 2 splits each of its 1536 latents in two: (3072, 256);
+    # phase 15 (d)'s image G step at aspect_ratio 2 has 24 latents of 8 x 16
+    # positions: (3072, 512)
     shapes = []
     for n, d, k, timed in ((2048, 512, 1024, True), (128, 512, 1024, True),
                            (2048, 256, 16384, True), (640, 256, 16384, False),
@@ -327,7 +347,7 @@ def phase_kernels(records):
                            (1440, 16, 1024, True), (16384, 512, 1024, True),
                            (6144, 512, 1024, True), (192, 1, 128, True),
                            (1536, 512, 1024, True), (1024, 512, 1024, True),
-                           (3072, 256, 1024, True)):
+                           (3072, 256, 1024, True), (3072, 512, 1024, True)):
         z = torch.randn(n, d, device="cuda", generator=g)
         cb = torch.randn(k, d, device="cuda", generator=g) * 0.1
         ties, gap = check_vq(z, cb)
@@ -684,6 +704,7 @@ def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=Non
     t0 = time.perf_counter()
     ae.decode_video(code.reshape(BATCH, vid_len, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
     stages["decode"] = _synced_since(t0)
+    DECODE_S[cfg.name] = stages["decode"] / (vid_len - n_ctx)
     log(f"{cfg.name} warm-up rollout by stage: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; total {sum(stages.values()):.3f} s")
@@ -1886,7 +1907,8 @@ def _ae_step_passes(res):
             and res["ema"][0] <= 0)
 
 
-def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae small"):
+def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae small",
+                       steps=AE_STEPS, iters=3):
     """(a) The small fp32 configuration: three iterations of the six steps
     (G, D, R1 for images and for video; R1 every 2) free-running on the
     card; each step also run on the CPU from the card's state before it
@@ -1910,7 +1932,9 @@ def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae
     generator seeded from ``(seed, it)`` on each device), holds the card's
     ``ada_p`` after each image D step to the CPU's and to the controller's
     rule (:func:`ada_rule`), and takes the G steps' gradient floor in the
-    image D and R1 steps too: they run the augmentation's bilinear warp."""
+    image D and R1 steps too: they run the augmentation's bilinear warp.
+    ``steps`` and ``iters`` (default: the six steps, 3 iterations) choose
+    the steps and the iterations held."""
     import copy
 
     import torch
@@ -1944,13 +1968,13 @@ def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae
     worst = {"metrics": 0.0, "grads": (0.0, ""), "grad_err": (0.0, ""),
              "update": (-float("inf"), ""), "ema": (-float("inf"), "")}
     keys, g_losses, n_steps = set(), [], 0
-    for it, (bi, bv) in enumerate(_ae_batches(cfg, 3)):
+    for it, (bi, bv) in enumerate(_ae_batches(cfg, iters)):
         batch = {dev: {"img": to_device(bi, dev), "vid": to_device(bv, dev)}
                  for dev in ("cpu", "cuda")}
         gens = {dev: iteration_generator(cfg.seed, it, dev) if use_aug else None
                 for dev in ("cpu", "cuda")}
         fake = {}
-        for kind, mode in AE_STEPS:
+        for kind, mode in steps:
             if kind == "r1" and it % cfg.ae.d_reg_every:
                 continue
             cstate.load_state_dict(copy.deepcopy(gstate.state_dict()))
@@ -2010,8 +2034,9 @@ def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae
     if not _ae_step_passes(worst):
         raise AssertionError(f"{label}: the card differs from the CPU beyond the "
                              f"tolerances: {worst}")
-    if len(ties) != 6:
-        raise AssertionError(f"{label}: K1 checked {len(ties)} times, expected 6")
+    n_g = iters * sum(kind == "g" for kind, _ in steps)
+    if len(ties) != n_g:
+        raise AssertionError(f"{label}: K1 checked {len(ties)} times, expected {n_g}")
     # planted faults in the last step, on its parameter of smallest gradient:
     # its update's sign flipped; its gradient's sign flipped, with the
     # update and second moment that Adam makes of it
@@ -2026,7 +2051,7 @@ def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae
     caught = [_ae_step_check(s) for s in (flipped, negated)]
     if any(_ae_step_passes(r) for r in caught):
         raise AssertionError(f"{label}: a planted fault in {name} passed the check")
-    log(f"{label}: 3 iterations ({n_steps} steps) free-running on the card, each step "
+    log(f"{label}: {iters} iterations ({n_steps} steps) free-running on the card, each step "
         f"held to the CPU's from the card's state: metrics within {worst['metrics']:.3g} "
         f"relative (tolerance 1e-4), gradients at most {worst['grads'][0]:.3g} of their "
         f"tolerance ({worst['grads'][1]}; {GRAD_TOL} of their own largest entry or "
@@ -2035,7 +2060,7 @@ def phase_ae_reference(on_step=None, after_build=None, cfg=None, label="train ae
         f"({worst['grad_err'][1]}), parameters and second "
         f"moments Adam's of the card's gradients (largest excess over fp32 rounding "
         f"{worst['update'][0]:.3g}), EMA that of the new parameters (excess "
-        f"{worst['ema'][0]:.3g}); K1's indices the plain search's in all 6 G steps "
+        f"{worst['ema'][0]:.3g}); K1's indices the plain search's in all {n_g} G steps "
         f"({sum(ties)} near-ties); terms {sorted(keys)}")
     if use_aug:
         log(f"{label}: ada_p after each image D step {ada_p}, the card's equal to the CPU's "
@@ -3521,6 +3546,384 @@ def phase_gpt_variants(records, card):
     phase_z_mult_ae(records, card)
 
 
+# ---------------- phase 15: the autoencoder's options ----------------
+
+
+# the decoder's option sets held card against CPU in (a), as
+# tests/test_torch_ae_options.py holds them against the JAX package
+AE_OPTION_SETS = {
+    "deform": dict(use_deformed_conv=True),
+    "masked": dict(use_masked_flow=True),
+    "tradeoff": dict(use_tradeoff=True),
+    "deform_masked_tradeoff": dict(use_deformed_conv=True, use_masked_flow=True,
+                                   use_tradeoff=True),
+    "no_corr": dict(no_corr=True),
+    "no_proj": dict(no_proj=True),
+    "skip_rgb_tanh": dict(skip_rgb=True, skip_tanh=True),
+    "no_inter": dict(use_inter=False),
+    "tiled_x": dict(shared_x_split=False),
+}
+# (b) and (c)'s full-width option sets
+SET_A = dict(use_deformed_conv=True, use_masked_flow=True, use_tradeoff=True, skip_rgb=True,
+             skip_tanh=True)
+SET_B = dict(no_corr=True, skip_mode="dec", keep_first=True, n_first=2, shared_x_split=False)
+OPTIONS_TOL = 1e-5  # (a): card against CPU, of each output's largest entry
+OPTIONS_BATCH = (24, 4)  # images and clips of (b)'s iteration and (d)'s steps: phase 11 (b)'s
+
+
+def options_small_config(**over):
+    """(a)'s decoder configuration: four resolutions at 32 px (the finest
+    runs the stride-2 correlation), every context width a multiple of 32
+    (``inter_p`` 1.0, multipliers (1, 1, 2, 2)), a 3-slot FIFO."""
+    from ccvs_tpu_torch.config import AutoencoderConfig
+
+    return AutoencoderConfig(necf=32, necf_mult=(1, 1, 2, 2), z_size=16, z_num=64,
+                             z_shape=(4, 4), max_dim=32, inter_p=1.0, skip_memory=3,
+                             skip_context=(1, 2, 3), **over)
+
+
+def smooth_features(g, batch, h, w, c):
+    """``(B, h, w, c)`` random plane waves of 0.5-2 periods a frame,
+    amplitude 0.5, drawn on the CPU from ``g``: spatially smooth, as an
+    encoder's features are (on white noise one fp32 rounding of a flow moves
+    the decoded frame by ~1e-5 of its largest entry on any device)."""
+    import torch
+
+    yy = torch.linspace(0, 1, h)[:, None, None]
+    xx = torch.linspace(0, 1, w)[None, :, None]
+    fy, fx = (torch.rand(batch, 1, 1, c, generator=g) * 1.5 + 0.5 for _ in range(2))
+    phase = torch.rand(batch, 1, 1, c, generator=g) * 2 * math.pi
+    return 0.5 * torch.sin(2 * math.pi * (fy * yy + fx * xx) + phase)
+
+
+def _worst_rel(got, want):
+    """The largest error over matching tensors, each relative to its CPU
+    tensor's largest entry."""
+    pairs = [(got, want)] if not isinstance(want, (list, tuple)) else zip(got, want)
+    out = 0.0
+    for g, w in pairs:
+        if isinstance(w, (list, tuple)):
+            out = max(out, _worst_rel(g, w))
+        elif w is not None:
+            out = max(out, _rel_err(g, w))
+    return out
+
+
+def _swapped_taps(x, flow, weight, bias=None):
+    """A planted fault: ``deform_conv3x3`` with its ky and kx taps swapped."""
+    from ccvs_tpu_torch.ops.deform import deform_conv3x3
+
+    return deform_conv3x3(x, flow, weight.transpose(2, 3), bias)
+
+
+def _decoder_pair_error(cpu, gpu, inputs, plant=False):
+    """The card's decoder outputs against the CPU's (:func:`_worst_rel`);
+    with ``plant``, the card's decoder runs :func:`_swapped_taps`."""
+    import torch
+    import ccvs_tpu_torch.nn.decoder as decoder_mod
+
+    z, ctx, mask = inputs
+    with torch.no_grad():
+        want = cpu(z, ctx, ctx_mask=mask, return_all=True, inter_pre_warping=False)
+        kept = decoder_mod.deform_conv3x3
+        if plant:
+            decoder_mod.deform_conv3x3 = _swapped_taps
+        try:
+            got = gpu(z.to("cuda"), [c.to("cuda") for c in ctx], ctx_mask=mask.to("cuda"),
+                      return_all=True, inter_pre_warping=False)
+        finally:
+            decoder_mod.deform_conv3x3 = kept
+    return _worst_rel(got, want)
+
+
+def options_reference():
+    """(a) Small fp32 configurations (:func:`options_small_config`) on the
+    card against the CPU from the same weights, each output within
+    ``OPTIONS_TOL`` of its largest entry: ``SkipDecoder`` under each option
+    set of ``AE_OPTION_SETS`` (k = 3 smooth contexts, a partial
+    ``ctx_mask``; the frame, every resolution's flows and occlusion logits,
+    the fused features); ``deform_conv3x3``'s value and its input and offset
+    gradients; ``decode_video`` of 7 frames from 1 with ``keep_first``
+    (``n_first`` 2: the FIFO full and pinned for the last three frames) and
+    with ``skip_mode`` "dec". A planted fault (``deform_conv3x3``'s ky and
+    kx taps swapped in the card's decoder) must fail the check. Then the
+    image G step with set A's options (phase 11 (a)'s 16 px autoencoder at
+    widths of 64 and 32) held to the CPU step by step for 2 iterations, as
+    phase 11 (a) holds it."""
+    import copy
+
+    import torch
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.nn.decoder import SkipDecoder
+    from ccvs_tpu_torch.nn.layers import init_equalized
+    from ccvs_tpu_torch.ops.deform import deform_conv3x3
+
+    f32 = torch.float32
+    g = torch.Generator().manual_seed(15)
+    mask = torch.tensor([[1.0, 0.0, 1.0], [1.0, 1.0, 0.0]])
+    errs = {}
+    for name, over in AE_OPTION_SETS.items():
+        cfg = options_small_config(**over)
+        cpu = init_equalized(SkipDecoder(cfg), g)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        ctx = [torch.stack([smooth_features(g, 2, 32 >> r, 32 >> r, c) for _ in range(3)], 1)
+               for r, c in enumerate(cfg.inter_sizes_enc)]
+        inputs = (torch.randn(2, 4, 4, 16, generator=g), ctx, mask)
+        errs[name] = _decoder_pair_error(cpu, gpu, inputs)
+        if name == "deform":
+            planted = _decoder_pair_error(cpu, gpu, inputs, plant=True)
+    log("options ae: SkipDecoder card vs CPU, of each output's largest entry: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tolerance {OPTIONS_TOL})")
+    log(f"options ae: planted fault (deform_conv3x3's ky and kx taps swapped on the card) "
+        f"{planted:.3g} of the largest entry: caught {planted > OPTIONS_TOL}")
+    if max(errs.values()) > OPTIONS_TOL or not planted > OPTIONS_TOL:
+        raise AssertionError(f"options ae: decoder card vs CPU {errs}, planted fault {planted}")
+
+    x = torch.randn(2, 16, 24, 32, generator=g)
+    flow = torch.randn(2, 16, 24, 2, generator=g) * 1.5
+    w = torch.randn(32, 32, 3, 3, generator=g) * (2 / (32 * 9)) ** 0.5
+    b = torch.randn(32, generator=g)
+    cot = torch.randn(2, 16, 24, 32, generator=g)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev).requires_grad_() for t in (x, flow, w, b)]
+        out = deform_conv3x3(*args)
+        res[dev] = [out, *torch.autograd.grad((out * cot.to(dev)).sum(), args[:2])]
+    derr = [_rel_err(a, c) for a, c in zip(res["cuda"], res["cpu"])]
+    log(f"options ae: deform_conv3x3 (2, 16, 24, 32), offsets N(0, 1.5^2) px, card vs CPU: "
+        f"value {derr[0]:.3g}, input gradient {derr[1]:.3g}, offset gradient {derr[2]:.3g} "
+        f"of their largest entries (tolerance {OPTIONS_TOL})")
+    if max(derr) > OPTIONS_TOL:
+        raise AssertionError(f"options ae: deform_conv3x3 card vs CPU {derr}")
+
+    codes = torch.randint(0, 64, (2, 7, 16), generator=g)
+    frames = torch.rand(2, 1, 32, 32, 3, generator=g) * 2 - 1
+    for name, over in (("keep_first n_first 2", dict(keep_first=True, n_first=2)),
+                       ('skip_mode "dec"', dict(skip_mode="dec"))):
+        cfg = options_small_config(**over)
+        cpu = FrameAutoencoder(cfg, dtype=f32, device="cpu").init(seed=3)
+        gpu = _pair(lambda d: FrameAutoencoder(cfg, dtype=f32, device=d), cpu, "cuda")
+        err = _rel_err(gpu.decode_video(codes.to("cuda"), frames.to("cuda"), n_ctx=1),
+                       cpu.decode_video(codes, frames, n_ctx=1))
+        log(f"options ae: decode_video with {name}, 7 frames from 1, card vs CPU {err:.3g} of "
+            f"the largest entry (tolerance {OPTIONS_TOL})")
+        if err > OPTIONS_TOL:
+            raise AssertionError(f"options ae: decode_video with {name}: {err}")
+
+    phase_ae_reference(cfg=small_ae_config(necf=32, inter_p=1.0, **SET_A),
+                       label="options ae image G step (set A)", steps=[("g", "img")], iters=2)
+
+
+def _options_config(name, **over):
+    import dataclasses
+
+    from ccvs_tpu_torch.config import bairhd_config
+
+    base = bairhd_config()
+    return base.replace(name=name, ae=dataclasses.replace(base.ae, **over))
+
+
+def _options_rollout(records, card, cfg):
+    """A 2-frame warm-up and one ``MODE_LEN`` (8) frame rollout of ``cfg``
+    (bf16, batch 2, 1 context frame; K1 2, K2 24 a decode step), then the
+    decode stage of its tokens alone; returns the models, the clip, the
+    tokens and the decode stage's seconds."""
+    import torch
+
+    torch.cuda.empty_cache()
+    ae, tr, gen = build_models(cfg)
+    vid = clip(cfg, MODE_LEN)
+    t0 = time.perf_counter()
+    gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
+                 n_ctx_frames=1)
+    warm = _synced_since(t0)
+    steps = (MODE_LEN - 1) * cfg.gpt.size
+    out, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    code = out["code"].reshape(BATCH, MODE_LEN, -1)
+    t0 = time.perf_counter()
+    ae.decode_video(code, ctx_frames=vid[:, :1], n_ctx=1)
+    t_dec = _synced_since(t0)
+    ref = ""
+    if "bairhd" in ROLLOUT_S:
+        ref = (f"; {dt / steps / (ROLLOUT_S['bairhd'] / ((VID_LEN - 1) * cfg.gpt.size)):.3f}x "
+               f"phase 3's time a decode step")
+    log(f"{cfg.name}: 2-frame warm-up {warm:.3f} s; the rollout {dt:.3f} s, "
+        f"{1e3 * dt / steps:.2f} ms a decode step{ref}; its decode stage alone (7 frames) "
+        f"{t_dec:.3f} s = {1e3 * t_dec / (MODE_LEN - 1):.1f} ms a frame; peak memory "
+        f"{peak:.2f} GiB; on {card}")
+    return ae, vid, code, t_dec
+
+
+def _options_iteration(cfg, card):
+    """Phase 11 (b)'s batch (24 images, 4 clips of 4 frames) through one
+    warm-up iteration and one with R1 of ``cfg``'s trainer, each step timed
+    with CUDA events; K1 exactly 2 launches an iteration."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                               batch_size_img=OPTIONS_BATCH[0],
+                                               batch_size_vid=OPTIONS_BATCH[1]))
+    torch.cuda.empty_cache()
+    (bi, bv), = _ae_batches(cfg, 1)
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    for it in (1, 16):  # R1 runs at it % 16 == 0
+        vq_indices.launches = 0
+        events, fake, ms = [], {}, {}
+        w0 = time.perf_counter()
+        for kind, mode in AE_STEPS:
+            if kind == "r1" and it % cfg.ae.d_reg_every:
+                continue
+            e0, e1 = _events()
+            e0.record()
+            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                  img if mode == "img" else vid, fake.get(mode))
+            e1.record()
+            events.append((f"{kind} {mode}", e0, e1))
+            ms.update(m)
+        wall = _synced_since(w0)
+        if vq_indices.launches != 2:
+            raise AssertionError(f"{cfg.name} AE iteration: K1 launched {vq_indices.launches} "
+                                 "times (expected 2)")
+    bad = [k for k, v in ms.items() if not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"{cfg.name} AE iteration: non-finite {bad}")
+    log(f"{cfg.name} AE iteration with R1 ({img['img'].shape[0]} images, "
+        f"{vid['vid'].shape[0]} clips of {vid['vid'].shape[1]} frames, after one warm-up "
+        f"iteration): {wall:.4f} s (host clock, synchronized); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 2 launches; by step (CUDA "
+        "events): " + ", ".join(f"{n} {e0.elapsed_time(e1):.2f} ms" for n, e0, e1 in events)
+        + f"; on {card}")
+    return 2
+
+
+def options_set_a(records, card):
+    """(b) Full-width BAIR-256 with set A (deformable conv, masked flow,
+    tradeoff features, skip-RGB and ``tanh``) on seeded weights: the
+    rollout (:func:`_options_rollout`), then an AE iteration with R1."""
+    cfg = _options_config("bairhd_options_a", **SET_A)
+    _, vid, code, t_dec = _options_rollout(records, card, cfg)
+    records["vq_argmin"]["launches_by_rollout"]["bairhd_options_a AE iteration with R1"] = (
+        _options_iteration(cfg, card))
+    return vid, code, t_dec
+
+
+def options_set_b(records, card, vid, code, t_dec_a):
+    """(c) Full width with set B (no correlation, ``skip_mode`` "dec",
+    ``keep_first`` with ``n_first`` 2, the tiled-x convs): the rollout,
+    whose decode stage re-encodes no frame; its decode stage a frame beside
+    phase 3's, set A's and the preset's on (b)'s tokens; then a decode of
+    17 frames from 1 (the 15-slot FIFO full and pinned for the last frame)
+    with finite frames."""
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.models import FrameAutoencoder
+
+    cfg = _options_config("bairhd_options_b", **SET_B)
+    ae, _, _, t_dec = _options_rollout(records, card, cfg)
+    preset = FrameAutoencoder(bairhd_config().ae, dtype=torch.bfloat16).init(seed=0)
+    t0 = time.perf_counter()
+    preset.decode_video(code, ctx_frames=vid[:, :1], n_ctx=1)
+    t_pre = _synced_since(t0)
+    del preset
+    per = {"set B": t_dec, "set A": t_dec_a, "the preset on set A's tokens": t_pre}
+    log("options ae: the decode stage a generated frame (7 frames, batch 2, host clock): "
+        + ", ".join(f"{k} {1e3 * v / (MODE_LEN - 1):.1f} ms" for k, v in per.items())
+        + (f", phase 3's warm-up {1e3 * DECODE_S['bairhd']:.1f} ms (15 frames)"
+           if "bairhd" in DECODE_S else ""))
+    n = 17
+    g = torch.Generator(device="cuda").manual_seed(5)
+    codes = torch.randint(0, cfg.ae.z_num, (BATCH, n, cfg.ae.tokens_per_frame), device="cuda",
+                          generator=g)
+    frames = clip(cfg, 1)
+    t0 = time.perf_counter()
+    out = ae.decode_video(codes, ctx_frames=frames, n_ctx=1)
+    dt = _synced_since(t0)
+    if out.shape != (BATCH, n, *frames.shape[2:]) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bairhd_options_b: the 17-frame decode {tuple(out.shape)} is not "
+                             "finite frames")
+    log(f"bairhd_options_b: decode_video of {n} frames from 1 (the 15th push pins the FIFO's "
+        f"first 2 slots, so the last frame decodes against the pinned FIFO) "
+        f"{dt:.3f} s = {1e3 * dt / (n - 1):.1f} ms a frame; on {card}")
+
+
+def options_aspect_ratio(records, card):
+    """(d) Full width at ``aspect_ratio`` 2: 256 x 512 frames, ``z_shape``
+    (8, 16), ``no_proj``, the preset's image batch (8 groups of [corrupted
+    context, next frame, distorted view], synthetic at 256 x 512). K1 on the
+    encoder's latents, (3072, 512) x (1024, 512), against the plain search;
+    one image G step (K1 once) and one image D step, each timed (first
+    calls, CUDA events), and the peak memory."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
+
+    base = bairhd_config()
+    h, w = base.ae.z_shape
+    cfg = base.replace(
+        name="bairhd_aspect_2",
+        ae=dataclasses.replace(base.ae, aspect_ratio=2.0, z_shape=(h, 2 * w), no_proj=True),
+        data=dataclasses.replace(base.data, dataset="synthetic", aspect_ratio=2.0,
+                                 batch_size_img=OPTIONS_BATCH[0]))
+    torch.cuda.empty_cache()
+    (bi, _), = _ae_batches(cfg, 1, kinds=("img",))
+    tr = FrameAutoencoderTrainer(cfg)
+    tr.init_params()
+    state = tr.init_state()
+    img = to_device(bi, "cuda")
+    hw = (cfg.ae.max_dim, 2 * cfg.ae.max_dim)
+    assert img["img"].shape == (OPTIONS_BATCH[0], *hw, 3), img["img"].shape
+    ae = tr.losses.ae
+    with torch.no_grad():
+        z, _ = ae.encoder(img["img"].to(ae.dtype))
+    zf = z.float().reshape(-1, cfg.ae.z_size)
+    ties, gap = check_vq(zf, ae.quantizer.embedding.detach())
+    log(f"bairhd_aspect_2: K1 at {tuple(zf.shape)} x {tuple(ae.quantizer.embedding.shape)} on "
+        f"the latents of {OPTIONS_BATCH[0]} images of {hw[0]} x {hw[1]}: indices the plain "
+        f"search's but {ties} near-ties (max distance gap {gap:.3g})")
+    torch.cuda.reset_peak_memory_stats()
+    vq_indices.launches = 0
+    times = {}
+    fake = None
+    for kind in ("g", "d"):
+        e0, e1 = _events()
+        e0.record()
+        state, m, fake, _, _ = _ae_step(tr, state, kind, "img", img, fake)
+        e1.record()
+        torch.cuda.synchronize()
+        times[kind] = e0.elapsed_time(e1)
+        bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"bairhd_aspect_2: image {kind.upper()} step non-finite {bad}")
+    if vq_indices.launches != 1:
+        raise AssertionError(f"bairhd_aspect_2: K1 launched {vq_indices.launches} times "
+                             "(expected 1)")
+    records["vq_argmin"]["launches_by_rollout"]["bairhd_aspect_2 (1 image G step)"] = 1
+    log(f"bairhd_aspect_2: the image G step {times['g']:.2f} ms, the image D step "
+        f"{times['d']:.2f} ms (CUDA events, first calls); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; discriminator fc1 input "
+        f"{tr.di.fc1.weight.shape[1]}; on {card}")
+
+
+def phase_ae_options(records, card):
+    random.seed(0)
+    options_reference()
+    vid, code, t_dec = options_set_a(records, card)
+    options_set_b(records, card, vid, code, t_dec)
+    options_aspect_ratio(records, card)
+
+
 # ---------------- tracing a gradient difference to its kinks ----------------
 
 
@@ -4209,6 +4612,8 @@ def main():
         phase_ada_layouts(records, card)
     with phase("14 GPT variants and reference checkpoints"):
         phase_gpt_variants(records, card)
+    with phase("15 autoencoder options"):
+        phase_ae_options(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

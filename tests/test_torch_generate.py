@@ -156,19 +156,19 @@ def test_jax_only_config_fields_are_the_jax_defaults():
 
 
 def test_a_config_the_port_cannot_honour_raises(tmp_path):
-    """A JAX ``bairhd_config`` with ``keep_first`` and ``n_first`` set raises
-    through ``Config.load`` and ``cli.py --load-config``; the JAX presets and
-    the repository's saved eval configs (which drop only ``async_ckpt`` at its
-    default) load."""
+    """A JAX ``bairhd_config`` with ``serve_fused`` set (the JAX package's
+    one-jit decode) raises through ``Config.load`` and ``cli.py
+    --load-config``; the JAX presets and the repository's saved eval configs
+    (which drop only ``async_ckpt`` at its default) load."""
     from ccvs_tpu_torch import cli
 
     cfg = jcfg.bairhd_config()
-    bad = cfg.replace(ae=dataclasses.replace(cfg.ae, keep_first=True, n_first=2))
-    path = tmp_path / "keep_first.json"
+    bad = cfg.replace(ae=dataclasses.replace(cfg.ae, serve_fused=True))
+    path = tmp_path / "serve_fused.json"
     path.write_text(bad.to_json())
-    with pytest.raises(ValueError, match="keep_first"):
+    with pytest.raises(ValueError, match="serve_fused"):
         Config.load(str(path))
-    with pytest.raises(ValueError, match="keep_first"):
+    with pytest.raises(ValueError, match="serve_fused"):
         cli.main(["train-ae", "--load-config", str(path), "--device", "cpu"])
     unknown = tmp_path / "unknown.json"
     unknown.write_text(cfg.to_json().replace('"async_ckpt"', '"no_such_field"'))

@@ -394,11 +394,18 @@ def test_config_with_the_new_fields_loads():
 
 @pytest.mark.parametrize("group,name,value", [("gpt", "is_continuous", True),
                                               ("gpt", "embd_pdrop", 0.1),
-                                              ("ae", "use_q_anyway", True)])
+                                              ("ae", "use_q_anyway", True),
+                                              ("ae", "weight_decay", 0.01),
+                                              ("ae", "use_quant_loss_vid", True),
+                                              ("ae", "decoder_only", True),
+                                              ("ae", "dtype", "float32"),
+                                              ("ae", "serve_fused", True)])
 def test_config_field_without_behaviour_raises_off_its_default(group, name, value):
-    """Neither package reads ``gpt.is_continuous``, ``embd_pdrop`` or
-    ``use_q_anyway``: a JAX config that sets one off its default raises
-    rather than loading a setting the port would ignore."""
+    """Neither package reads ``gpt.is_continuous``, ``embd_pdrop``,
+    ``use_q_anyway``, the AE's ``weight_decay``, ``use_quant_loss_vid``,
+    ``decoder_only`` or ``dtype``, and the port has no ``serve_fused`` (the
+    JAX package's one-jit decode): a JAX config that sets one off its
+    default raises rather than loading a setting the port would ignore."""
     cfg = jcfg.bairhd_config()
     cfg = cfg.replace(**{group: dataclasses.replace(getattr(cfg, group), **{name: value})})
     with pytest.raises(ValueError, match=name):

@@ -357,16 +357,18 @@ def test_block_delta_and_prune_mismatched_match_ccvs_tpu():
 
 
 def test_port_decoder_refuses_options_the_port_lacks():
-    """``use_tradeoff``, ``no_corr`` and ``no_proj`` (and ``use_inter``
-    off) cannot reach the port's ``port_decoder``: ``Config.from_json``
-    refuses a JAX config that sets one. At their defaults the port's
-    config gives the JAX package's tree."""
-    for over in (dict(use_tradeoff=True), dict(no_corr=True), dict(no_proj=True),
-                 dict(use_inter=False)):
-        cfg = jcfg.Config(ae=dataclasses.replace(AE, **over))
-        with pytest.raises(ValueError, match=next(iter(over))):
-            tcfg.Config.from_json(cfg.to_json())
+    """``use_deformed_conv`` and ``skip_rgb`` load through
+    ``Config.from_json``, but no key of the reference's state dict maps to
+    their parameters in either package: the port's ``port_decoder`` raises
+    a clear error (``tests/test_torch_ae_options.py`` holds the options it
+    maps). At the defaults the port's config gives the JAX package's
+    tree."""
     sd = synth_decoder_sd(AE, np.random.RandomState(6))
+    for over in (dict(use_deformed_conv=True), dict(skip_rgb=True)):
+        cfg = jcfg.Config(ae=dataclasses.replace(AE, **over))
+        ported = tcfg.Config.from_json(cfg.to_json()).ae
+        with pytest.raises(ValueError, match=next(iter(over))):
+            tpp.port_decoder(ported, sd)
     ported = tcfg.Config.from_json(jcfg.Config(ae=AE).to_json()).ae
     assert_trees_equal(tpp.port_decoder(ported, sd), jpp.port_decoder(AE, sd))
 
