@@ -17,11 +17,22 @@ and ``config.json``); the frozen autoencoder takes its EMA weights unless
 under ``<save_path>/results/<name>/``; the ``eval-*`` commands score such
 directories and print one JSON line. Everything runs on the GPU unless
 ``--device cpu``. A trainer stopped by SIGTERM or SIGINT writes its latest
-checkpoint and exits with 75, so that a wrapper can resume it. Multi-device
-runs (the JAX package's mesh: ``--distributed``, ``--n-devices``,
-``--model-parallel``, ``--fsdp``, ``--seq-parallel``) come with the parallel
-layer; ``generate`` refuses them, and ``--fused`` (the JAX package's
-one-program decode), rather than ignore them.
+checkpoint and exits with 75, so that a wrapper can resume it.
+
+Several GPUs: one process a GPU under ``torchrun`` with ``--distributed``
+(``parallel/mesh.py``), e.g.::
+
+    torchrun --nproc-per-node 4 -m ccvs_tpu_torch.cli train-ae --preset bairhd --distributed
+    torchrun --nproc-per-node 4 -m ccvs_tpu_torch.cli train-transformer ... --distributed --fsdp
+    torchrun --nproc-per-node 4 -m ccvs_tpu_torch.cli train-transformer ... --distributed \
+        --model-parallel 2 [--seq-parallel]
+
+The batch is split over the mesh's data axis, ``--model-parallel`` splits
+the GPT's weights over its model axis (tensor parallelism; with
+``--seq-parallel`` the tokens too), ``--fsdp`` splits the GPT's parameters
+and moments over the data axis. ``generate`` on a mesh writes each process's clips,
+named by their global index. ``--fused`` (the JAX package's one-program
+decode) has no counterpart and is refused.
 """
 
 import argparse
@@ -51,6 +62,20 @@ def _add_common(p):
                    help="compute dtype of the autoencoder and the GPT")
     p.add_argument("--grad-accum", type=int, default=None,
                    help="transformer training: microbatches an optimizer update")
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group (RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT): one process a device")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="devices of the mesh (default: the world's processes)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="the mesh's model axis: the GPT split over it in transformer training")
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="transformer training: split the token axis over the model axis too")
+    p.add_argument("--fsdp", action="store_true",
+                   help="transformer training: split the GPT's parameters and AdamW moments "
+                        "over the data axis")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="write checkpoints on a background thread")
 
 
 def _add_generate(p):
@@ -74,11 +99,8 @@ def _add_generate(p):
     p.add_argument("--custom-state", action="store_true",
                    help="a square path of states from each clip's estimated first state")
     p.add_argument("--fold", type=int, default=None, help="valid data fold to generate from")
-    # the JAX package's options that the port cannot honour yet: refused
+    # the JAX package's one-program decode, which the port does not have: refused
     p.add_argument("--fused", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--n-devices", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--model-parallel", type=int, default=1, help=argparse.SUPPRESS)
 
 
 def _config(args):
@@ -96,7 +118,35 @@ def _config(args):
         cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataroot=args.dataroot))
     if args.grad_accum:
         cfg = cfg.replace(gpt=dataclasses.replace(cfg.gpt, grad_accum=args.grad_accum))
+    if getattr(args, "async_ckpt", False):
+        cfg = cfg.replace(async_ckpt=True)
+    gpt = {k: True for k in ("seq_parallel", "fsdp") if getattr(args, k, False)}
+    if gpt:
+        cfg = cfg.replace(gpt=dataclasses.replace(cfg.gpt, **gpt))
     return cfg
+
+
+def _mesh(args):
+    """The ``("data", "model")`` mesh of the flags, or None (one process, no
+    flags): ``--distributed`` joins torchrun's process group first (the
+    counterpart of ``jax.distributed.initialize()``)."""
+    import torch.distributed as dist
+
+    if not (args.distributed or args.model_parallel > 1 or (args.n_devices or 0) > 1):
+        return None
+    from ccvs_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    try:
+        if args.distributed:
+            init_distributed(args.device)
+        elif not dist.is_initialized():
+            raise RuntimeError(f"--n-devices {args.n_devices} / --model-parallel "
+                               f"{args.model_parallel} without --distributed: one process "
+                               "drives one device; start one a device under torchrun")
+        return make_mesh(args.n_devices, model_parallel=args.model_parallel,
+                         device=args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"data-parallel run: {e}")
 
 
 def _load_module(module, ckpt_dir, label, which="latest"):
@@ -145,26 +195,27 @@ def main(argv=None):
         return _evaluate(args)
     cfg = _config(args)
     dtype = getattr(torch, args.dtype)
+    mesh = _mesh(args)
 
     if args.task == "train-ae":
         from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer
 
-        tr = FrameAutoencoderTrainer(cfg, vgg_npz=args.vgg_npz, dtype=dtype, device=args.device)
+        tr = FrameAutoencoderTrainer(cfg, vgg_npz=args.vgg_npz, dtype=dtype, device=args.device,
+                                     mesh=mesh)
     elif args.task == "train-stft":
         from ccvs_tpu_torch.train.state_trainer import StftAutoencoderTrainer
 
-        tr = StftAutoencoderTrainer(cfg, vgg_npz=args.vgg_npz, device=args.device)
+        tr = StftAutoencoderTrainer(cfg, vgg_npz=args.vgg_npz, device=args.device, mesh=mesh)
     else:
-        from ccvs_tpu_torch.device import resolve_device
-        from ccvs_tpu_torch.train.ae_trainer import load_ae_checkpoint
+        from ccvs_tpu_torch.train.ae_trainer import load_ae_checkpoint, trainer_device
 
-        device = resolve_device(args.device)
+        device = trainer_device(args.device, mesh)
         ae = load_ae_checkpoint(args.ae_ckpt, args.ae_which, raw=args.ae_raw, dtype=dtype,
                                 device=device)
         if args.task == "train-state":
             from ccvs_tpu_torch.train.state_trainer import StateEstimatorTrainer
 
-            tr = StateEstimatorTrainer(cfg, ae, device=device)
+            tr = StateEstimatorTrainer(cfg, ae, device=device, mesh=mesh)
         else:
             from ccvs_tpu_torch.models import StateModel, StftModel
             from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
@@ -179,7 +230,7 @@ def main(argv=None):
             if cfg.gpt.state and state_model is None and stft_model is None:
                 raise SystemExit("a state-conditioned GPT needs --state-ckpt (or --stft-ckpt)")
             tr = TransformerTrainer(cfg, ae, state_model=state_model, stft_model=stft_model,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, device=device, mesh=mesh)
     tr.run(resume=args.resume)
     if tr.preempted:
         sys.exit(75)
@@ -250,21 +301,26 @@ def _generate(args):
     Returns the results directory and each batch's seconds of generation
     and of writing."""
     from ccvs_tpu_torch.data import PrefetchLoader, create_dataset
-    from ccvs_tpu_torch.device import resolve_device
     from ccvs_tpu_torch.generate import VideoGenerator
     from ccvs_tpu_torch.models import StateModel, StftModel, TokenTransformer
-    from ccvs_tpu_torch.train.ae_trainer import load_ae_checkpoint
+    from ccvs_tpu_torch.parallel.mesh import DataAxis, host_local_rows
+    from ccvs_tpu_torch.train.ae_trainer import host_shard, load_ae_checkpoint, trainer_device
 
     if args.fused:
         raise SystemExit("--fused (the JAX package's one-program decode) has no counterpart in "
                          "the port; run without it")
-    if args.distributed or args.model_parallel > 1 or (args.n_devices or 0) > 1:
-        raise SystemExit("--distributed, --n-devices > 1 and --model-parallel > 1 come with "
-                         "the port's parallel layer, which is not ported yet")
     cfg = _config(args)
     if args.serve_int8:
         cfg = cfg.replace(gpt=dataclasses.replace(cfg.gpt, serve_int8=True))
-    device = resolve_device(args.device)
+    # data-parallel generation: each process generates its block of every
+    # batch and writes those clips, named by their global index
+    mesh = _mesh(args)
+    gen_batch = cfg.data.batch_size_vid * cfg.data.batch_size_valid_mult
+    n_data = 1 if mesh is None else mesh["data"].size()
+    if gen_batch % n_data:
+        raise SystemExit(f"the data axis {n_data} must divide batch_size_vid x "
+                         f"batch_size_valid_mult = {gen_batch}")
+    device = trainer_device(args.device, mesh)
     dtype = getattr(torch, args.dtype)
 
     ae = load_ae_checkpoint(args.ae_ckpt, args.ae_which, raw=args.ae_raw, dtype=dtype,
@@ -280,11 +336,14 @@ def _generate(args):
                                   "best")
     gen = VideoGenerator(cfg, ae, tr, state_model, stft_model)
     ds = create_dataset(cfg.data, phase="valid", load_vid=not args.gen_from_img, fold=args.fold)
-    gen_batch = cfg.data.batch_size_vid * cfg.data.batch_size_valid_mult
     loader = PrefetchLoader(ds, gen_batch, shuffle=cfg.data.shuffle_valid,
-                            num_workers=cfg.data.num_workers, drop_last=True)
+                            num_workers=cfg.data.num_workers, drop_last=True,
+                            host_shard=host_shard(mesh) if mesh is not None else None)
     result_path = os.path.join(cfg.save_path, "results", cfg.name)
-    # one stream for every batch; it is not the JAX package's stream
+    # one stream for every batch, the same on every data rank: each draw is
+    # made at the global batch's rows and a rank keeps its own, so N processes
+    # write what one process writes (it is not the JAX package's stream)
+    tr.data_axis = DataAxis.of(mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     seconds = {"generate": [], "write": []}
@@ -327,8 +386,12 @@ def _generate(args):
                 lbl = lbl.cpu().numpy() if isinstance(lbl, torch.Tensor) else np.asarray(lbl)
                 cats = [cfg.data.categories[int(x)] for x in lbl]
         t0 = time.perf_counter()
+        ids = batch.get("vid_id") if args.include_id else None
+        if mesh is not None and ids is None:
+            vid, row_ids = host_local_rows(vid, mesh)
+            ids = gen_batch * i + row_ids
         gen.save_batch(result_path, i, gen_batch, vid, out, fps=cfg.data.fps,
-                       imagenet_norm=cfg.data.imagenet_norm, vid_ids=batch.get("vid_id") if args.include_id else None, cats=cats)
+                       imagenet_norm=cfg.data.imagenet_norm, vid_ids=ids, cats=cats)
         seconds["generate"].append(t_gen)
         seconds["write"].append(time.perf_counter() - t0)
         print(f"batch {i}: generated in {t_gen:.3f} s, written in {seconds['write'][-1]:.3f} s",

@@ -332,7 +332,9 @@ class TransformerConfig:
     remat: bool = False
     # one update from this many equal microbatches of the batch
     grad_accum: int = 1
-    # the parallel layer's options (not ported: raise)
+    # the parallel layer (parallel/sp.py, parallel/fsdp.py): the token axis
+    # of the training blocks split over the mesh's ``model`` axis; the GPT's
+    # parameters and AdamW moments split over its ``data`` axis
     seq_parallel: bool = False
     fsdp: bool = False
 
@@ -401,7 +403,6 @@ JAX_ONLY_DEFAULTS = {
     },
     "gpt": {"dtype": "bfloat16", "is_continuous": False, "embd_pdrop": 0.0},
     "state": {"quantize_only": False},
-    "config": {"async_ckpt": False},
 }
 
 
@@ -441,6 +442,8 @@ class Config:
     # parameters (the GPT's, or the autoencoder's raw generator) into this
     # fp16 npz, in the JAX package's flat layout (utils/checkpoint.py)
     npz_mirror: str = ""
+    # write checkpoints on a background thread (utils/checkpoint.py)
+    async_ckpt: bool = False
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

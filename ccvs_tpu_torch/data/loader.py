@@ -19,8 +19,8 @@ from ccvs_tpu_torch.data.base import group_collate
 def host_shard_spec():
     """(rank, world size) of an initialised ``torch.distributed`` process
     group of more than one process, else None: each process loads only its
-    stride of the global index (the reference's DistributedSampler split,
-    `tools/engine.py:81-101`)."""
+    block of every global batch (:class:`PrefetchLoader`; the reference's
+    DistributedSampler strides the index instead, `tools/engine.py:81-101`)."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
@@ -30,9 +30,9 @@ def host_shard_spec():
 
 class PrefetchLoader:
     """``batch_size`` is the GLOBAL batch; under multi-host each process
-    loads ``batch_size / n_hosts`` samples of it (disjoint by index stride,
-    deterministic: every host shuffles the full index with the same
-    seed+epoch before taking its stride)."""
+    loads ``batch_size / n_hosts`` samples of it, its block of each global
+    batch (disjoint, deterministic: every host shuffles the full index with
+    the same seed+epoch before taking its blocks)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, prefetch: int = 2, drop_last: bool = True,
@@ -72,11 +72,16 @@ class PrefetchLoader:
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         if self.host_shard is not None:
+            # each global batch of ``batch_size * nh`` indices is cut into nh
+            # blocks, one a process: the processes' batches put end to end
+            # are the one-process batch (the JAX package strides the index,
+            # which permutes it); wraparound padding gives every process the
+            # same number of batches
             hid, nh = self.host_shard
-            pad = (-len(idx)) % nh
-            if pad:  # wraparound padding -> equal-length per-host shards
-                idx = np.concatenate([idx, idx[:pad]])
-            idx = idx[hid::nh]
+            need = len(self) * self.batch_size * nh
+            if need > len(idx):
+                idx = np.resize(idx, need)
+            idx = idx[:need].reshape(-1, nh, self.batch_size)[:, hid].reshape(-1)
         return idx
 
     def __iter__(self) -> Iterator[dict]:

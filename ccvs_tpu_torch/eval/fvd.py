@@ -4,8 +4,8 @@ The Fréchet distance is exact (numpy and ``scipy.linalg.sqrtm`` on the
 host, as in the JAX package). The video embedder is pluggable:
 
 - :class:`I3D`, the Inflated Inception-v1 backbone at full width (1024-d
-  embeddings), from the JAX package's ``variables`` npz
-  (``ccvs_tpu.port.export_i3d``) or, without one, seeded random filters;
+  embeddings), from the ``variables`` npz of
+  ``python -m ccvs_tpu_torch.port.export_i3d`` or, without one, seeded random filters;
 - :func:`make_fallback_embedder`, a fixed random 3D-conv network: its FVD is
   self-consistent (it tracks relative progress) but not comparable to
   published I3D-FVD numbers.
@@ -301,7 +301,7 @@ _UNCAL_WARNING = (
     "WARNING: no vendored I3D weights -- FVD computed with a RANDOM embedder.\n"
     "The numbers are self-consistent (usable for tracking relative progress)\n"
     "but NOT comparable to published I3D-FVD. Export real weights with\n"
-    "`python -m ccvs_tpu.port.export_i3d` and pass --i3d-npz.\n" + "=" * 70
+    "`python -m ccvs_tpu_torch.port.export_i3d` and pass --i3d-npz.\n" + "=" * 70
 )
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ccvs_tpu_torch.ops.resize import resize_frames
+from ccvs_tpu_torch.parallel.mesh import draw_rows
 from ccvs_tpu_torch.utils import video_io
 from ccvs_tpu_torch.train.transformer_trainer import blur_video
 
@@ -120,8 +121,9 @@ class VideoGenerator:
             ctx_vid = out["blur"] = blur_video(real_vid, gcfg.blur_sigma)
             state_code = self.ae.encode(ctx_vid)["code"].reshape(b, -1)
         if gcfg.cat and vid_lbl is None:
-            vid_lbl = out["vid_lbl"] = torch.randint(0, gcfg.num_lbl, (b,), generator=generator,
-                                                     device=generator.device)
+            vid_lbl = out["vid_lbl"] = draw_rows(
+                self.transformer.data_axis, b, lambda n: torch.randint(
+                    0, gcfg.num_lbl, (n,), generator=generator, device=generator.device))
 
         cond_code = delta = cond_inter = None
         t_step = t  # frames generated and decoded

@@ -23,13 +23,27 @@ from ccvs_tpu_torch.device import resolve_device
 from ccvs_tpu_torch.nn.gpt import (CGPT, GPT, KIND_FRAME, KIND_STATE, build_schedule,
                                    cache_to_layers, decode_step_fn)
 from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
+from ccvs_tpu_torch.parallel.mesh import draw_rows
 
 
-def _sample_token(cfg, generator, logits, kind):
+def _categorical(probs, generator, axis=None):
+    """One draw from each row of ``probs`` ``(B, V)``: the argmax of ``probs``
+    over Exp(1) noise, as ``torch.multinomial`` draws one sample (the same
+    tokens from the same generator state), the noise drawn at the global
+    batch's rows where a data axis ``axis`` splits the batch
+    (``parallel.mesh.draw_rows``)."""
+    q = draw_rows(axis, probs.shape[0], lambda n: torch.empty(
+        (n, *probs.shape[1:]), dtype=probs.dtype, device=probs.device).exponential_(
+            1.0, generator=generator))
+    return (probs / q).argmax(-1)
+
+
+def _sample_token(cfg, generator, logits, kind, axis=None):
     """Sample tokens ``(B,)`` of the stream ``kind`` (a host int) from logits
     ``(B, V)``: the stream's temperature and vocabulary mask, its top-k
     threshold read from one ``topk`` of the larger k, then a categorical
-    draw, or the argmax where the stream does not sample."""
+    draw (:func:`_categorical`, over the data axis ``axis``), or the argmax
+    where the stream does not sample."""
     is_state = kind == KIND_STATE
     logits = logits.float() / (cfg.temperature_state if is_state else cfg.temperature)
     vocab = logits.shape[-1]
@@ -45,8 +59,7 @@ def _sample_token(cfg, generator, logits, kind):
         logits = logits.masked_fill(logits < thresh, float("-inf"))
     if not ((cfg.sample_state or cfg.sample) if is_state else cfg.sample):
         return logits.argmax(-1)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return _categorical(torch.softmax(logits, dim=-1), generator, axis)
 
 
 def _top_k(x, k):
@@ -72,7 +85,7 @@ def _beam_logprobs(cfg, logits):
     return torch.log_softmax(lg, dim=-1)
 
 
-def _beam_state_token(cfg, generator, logits):
+def _beam_state_token(cfg, generator, logits, axis=None):
     """A state token for each hypothesis, outside the beam score: the state
     temperature, vocabulary and ``top_k_state`` (without the fallback to
     ``top_k`` of :func:`_sample_token`, as the JAX package's beam search)."""
@@ -83,7 +96,7 @@ def _beam_state_token(cfg, generator, logits):
     if cfg.top_k_state is not None:
         lg = _mask_below_top_k(lg, cfg.top_k_state)
     if cfg.sample_state or cfg.sample:
-        return torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
+        return _categorical(torch.softmax(lg, dim=-1), generator, axis)
     return lg.argmax(-1)
 
 
@@ -103,6 +116,10 @@ class TokenTransformer(nn.Module):
         self.cfg = cfg
         with resolve_device(device):
             self.model = GPT(cfg, dtype=dtype, param_dtype=param_dtype)
+        # parallel.mesh.DataAxis of a data-parallel generation: each batch is
+        # this rank's block of the global batch, and every random draw is made
+        # at the global batch's rows (what one process draws on it)
+        self.data_axis = None
         self.eval()
 
     @property
@@ -312,7 +329,7 @@ class TokenTransformer(nn.Module):
             if given[j]:
                 tok = merged[:, j]
             else:
-                tok = _sample_token(self.cfg, generator, logits, int(kind[j]))
+                tok = _sample_token(self.cfg, generator, logits, int(kind[j]), self.data_axis)
                 merged[:, j] = tok
             emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
             logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
@@ -358,20 +375,21 @@ class TokenTransformer(nn.Module):
             if given[j]:
                 tok = merged[:, j]
             elif kind[j] == KIND_STATE:
-                tok = _beam_state_token(cfg, generator, logits)
+                tok = _beam_state_token(cfg, generator, logits, self.data_axis)
             else:
                 lp = _beam_logprobs(cfg, logits)  # (bb, z_num)
                 if j == beam_start:
                     lp0 = lp[::beam]  # one row per element: its hypotheses are still clones
                     score = lp0
                     if cfg.sample and not cfg.no_sample:
-                        u = torch.rand(lp0.shape, generator=generator, device=dev)
+                        u = draw_rows(self.data_axis, b, lambda n: torch.rand(
+                            (n, lp0.shape[1]), generator=generator, device=dev))
                         score = lp0 - torch.log(-torch.log(u + 1e-20) + 1e-20)
                     _, tok = _top_k(score, beam)  # (b, beam)
                     log_p = log_p + lp0.gather(1, tok).reshape(bb)
                     tok = tok.reshape(bb)
                 elif cfg.sample:
-                    tok = torch.multinomial(lp.exp(), 1, generator=generator)[:, 0]
+                    tok = _categorical(lp.exp(), generator, self.data_axis)
                     log_p = log_p + lp.gather(1, tok[:, None])[:, 0]
                 else:
                     vals, cand = _top_k(lp, beam)  # (bb, beam)
@@ -404,6 +422,9 @@ class ContinuousTransformer(nn.Module):
         self.cfg = cfg
         with resolve_device(device):
             self.model = CGPT(cfg, dtype=dtype, param_dtype=param_dtype)
+        # TokenTransformer's: the rollout is greedy, only a drawn class label
+        # reads it (generate.py)
+        self.data_axis = None
         self.eval()
 
     @property

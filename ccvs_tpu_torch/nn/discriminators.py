@@ -2,8 +2,11 @@
 the StyleGAN2 image discriminator, the 3D-conv video discriminator and the
 latent-feature discriminator, NHWC / NTHWC.
 
-The minibatch-stddev groups are formed within the batch a call is given, as
-the reference forms them within each GPU's. Flattening before ``fc1`` goes
+The minibatch-stddev groups are formed within the global batch: with
+``data_axis`` set (a data-parallel trainer sets it) the features are first
+gathered over the mesh's data axis, as the JAX package's GSPMD program
+computes the stddev of the whole batch at every mesh size (the reference
+forms the groups within each GPU's batch). Flattening before ``fc1`` goes
 through the (C, H, W) order of the reference's NCHW tensors, which ``fc1``'s
 weight was laid out for. Frames are ``max_dim x int(max_dim *
 aspect_ratio)``: the image and video discriminators end at ``4 x int(4 *
@@ -38,6 +41,7 @@ class ImageDiscriminator(nn.Module):
 
     def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
+        self.data_axis = None  # parallel.mesh.DataAxis of a data-parallel trainer
         self.cfg = cfg
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         ndcf, mult = cfg.ndcf, cfg.ndcf_mult
@@ -67,7 +71,7 @@ class ImageDiscriminator(nn.Module):
         out = self.conv0(x)
         for i in range(1, self.n_res + 1):
             out = getattr(self, f"res{i}")(out)
-        out = self.final_conv(minibatch_stddev(out, cfg.stddev_group))
+        out = self.final_conv(minibatch_stddev(out, cfg.stddev_group, axis=self.data_axis))
         return self.fc2(self.fc1(_channel_major(out)))
 
 
@@ -78,6 +82,7 @@ class VideoDiscriminator(nn.Module):
 
     def __init__(self, cfg, vid_len, dtype=torch.float32, param_dtype=None):
         super().__init__()
+        self.data_axis = None  # parallel.mesh.DataAxis of a data-parallel trainer
         self.cfg = cfg
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         ndcf, mult = cfg.ndcf, cfg.ndcf_mult
@@ -109,7 +114,7 @@ class VideoDiscriminator(nn.Module):
         out = self.conv0(x)
         for i in range(1, self.n_res + 1):
             out = getattr(self, f"res{i}")(out)
-        out = self.final_conv(minibatch_stddev_3d(out, 4))
+        out = self.final_conv(minibatch_stddev_3d(out, 4, axis=self.data_axis))
         return self.fc2(self.fc1(_channel_major(out)))
 
 
@@ -119,6 +124,7 @@ class FeatureDiscriminator(nn.Module):
 
     def __init__(self, cfg, dtype=torch.float32, param_dtype=None):
         super().__init__()
+        self.data_axis = None  # parallel.mesh.DataAxis of a data-parallel trainer
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.conv0 = ConvLayerD(cfg.z_size, 128, 1, **kw)
         h, w = cfg.z_shape
@@ -134,5 +140,5 @@ class FeatureDiscriminator(nn.Module):
         out = self.conv0(flatten_vid(x)[0])
         for i in range(self.n_res):
             out = getattr(self, f"res{i}")(out)
-        out = self.final_conv(minibatch_stddev(out, 4))
+        out = self.final_conv(minibatch_stddev(out, 4, axis=self.data_axis))
         return self.fc2(self.fc1(_channel_major(out)))

@@ -119,6 +119,21 @@ def _dense(layer, x):
     return F.linear(x, w, b)
 
 
+def causal_probs(q, k, dtype, q_offset=0):
+    """Causal attention probabilities ``(B, nh, tq, tk)`` in ``dtype`` of
+    queries ``q`` ``(B, tq, nh, hd)`` at positions ``q_offset ..`` over keys
+    ``k`` ``(B, tk, nh, hd)`` at positions ``0 ..``; the softmax in fp32."""
+    att = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    tq, tk = q.shape[1], k.shape[1]
+    if q_offset == 0 and tq == tk:
+        causal = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+    else:
+        pos = torch.arange(tq, device=q.device)[:, None] + q_offset
+        causal = torch.arange(tk, device=q.device)[None, :] <= pos
+    att = att.masked_fill(~causal, -1e9)
+    return torch.softmax(att.float(), dim=-1).to(dtype)
+
+
 def _dropout(x, p, generator):
     """Inverted dropout (flax's ``Dropout``): each entry kept with
     probability ``1 - p`` and scaled by ``1 / (1 - p)``."""
@@ -151,17 +166,22 @@ class CausalSelfAttention(nn.Module):
         self.n_head, self.dtype = cfg.n_head, dtype
         self.attn_pdrop, self.resid_pdrop = cfg.attn_pdrop, cfg.resid_pdrop
 
-    def forward(self, x, cache=None, index=0, generator=None):
+    def forward(self, x, cache=None, index=0, generator=None, split=None):
         """x ``(B, t, C)``. With ``cache`` ``(ck, cv)`` of ``(B, nh, L, hd)``,
         the new keys and values are written at ``index`` (in place) and the
         queries attend to cache positions ``<= index + their offset``.
         ``index`` is an int, or for one token (``t == 1``) an int32 tensor of
-        shape ``(1,)`` on the cache's device."""
+        shape ``(1,)`` on the cache's device. ``split``: the block's
+        ``parallel.tp.MeshSplit`` (cache-free only), whose collectives
+        surround the projections and attention's keys."""
+        if split is not None:
+            x = split.enter(x)
         b, t, c = x.shape
-        nh, hd, dt = self.n_head, c // self.n_head, self.dtype
-        q = _dense(self.query, x).reshape(b, t, nh, hd)
-        k = _dense(self.key, x).reshape(b, t, nh, hd)
-        v = _dense(self.value, x).reshape(b, t, nh, hd)
+        hd, dt = c // self.n_head, self.dtype
+        # -1 heads: a split over the model axis holds n_head / n of them
+        q = _dense(self.query, x).reshape(b, t, -1, hd)
+        k = _dense(self.key, x).reshape(b, t, -1, hd)
+        v = _dense(self.value, x).reshape(b, t, -1, hd)
         scale = 1.0 / math.sqrt(hd)
         if cache is not None:
             ck, cv = cache
@@ -178,14 +198,15 @@ class CausalSelfAttention(nn.Module):
                 att = torch.softmax(att.float(), dim=-1).to(dt)
                 y = torch.einsum("bhql,bhld->bqhd", att, cv.to(dt))
         else:
-            att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-            causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-            att = att.masked_fill(~causal, -1e9)
-            att = torch.softmax(att.float(), dim=-1).to(dt)
+            q_offset = 0
+            if split is not None:
+                k, v, q_offset = split.keys(k, v)
+            att = causal_probs(q, k, dt, q_offset)
             if self.training and self.attn_pdrop > 0:
                 att = _dropout(att, self.attn_pdrop, generator)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        y = _dense(self.proj, y.reshape(b, t, c))
+        y = y.reshape(b, t, -1)
+        y = _dense(self.proj, y) if split is None else split.exit(self.proj, y)
         if self.training and self.resid_pdrop > 0:
             y = _dropout(y, self.resid_pdrop, generator)
         return y
@@ -203,16 +224,25 @@ class Block(nn.Module):
         self.resid_pdrop, self.resid_noise = cfg.resid_pdrop, cfg.resid_noise
         if cfg.resid_noise:
             self.noise_weight = nn.Parameter(torch.ones(1, dtype=torch.float32))
+        # the parallel.tp.MeshSplit of a GPT whose weights or tokens are split
+        # over a mesh's model axis (parallel/tp.py, parallel/sp.py)
+        self.mesh_split = None
 
     def forward(self, x, cache=None, index=0, generator=None):
-        x = x + self.attn(self.ln1(x), cache=cache, index=index, generator=generator)
-        h = _dense(self.fc1, self.ln2(x))
+        split = self.mesh_split
+        if split is not None:
+            split.check(self, cache)
+        x = x + self.attn(self.ln1(x), cache=cache, index=index, generator=generator,
+                          split=split)
+        h = self.ln2(x)
+        h = _dense(self.fc1, h if split is None else split.enter(h))
         if self.training and self.resid_noise:
             # one N(0, 1) draw per (batch, position), broadcast over channels
             noise = torch.randn((*h.shape[:2], 1), generator=generator, device=h.device,
                                 dtype=h.dtype)
             h = h + self.noise_weight.to(h.dtype) * noise
-        h = _dense(self.fc2, F.gelu(h))
+        h = F.gelu(h)
+        h = _dense(self.fc2, h) if split is None else split.exit(self.fc2, h)
         if self.training and self.resid_pdrop > 0:
             h = _dropout(h, self.resid_pdrop, generator)
         return x + h
@@ -226,9 +256,19 @@ class GPTCore(nn.Module):
         self.cfg = cfg
         self.blocks = nn.ModuleList(Block(cfg, dtype, param_dtype) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, dtype, param_dtype=torch.float32)
+        # the parallel.tp.MeshSplit of a GPT split over a mesh (parallel/);
+        # with the tokens split, the cache-free forward is its core_forward
+        # (the cached forward and the decode step never split them)
+        self.mesh_split = None
 
     def forward(self, emb, cache=None, index=0, generator=None):
-        x = emb
+        split = self.mesh_split
+        if split is not None and split.seq and cache is None:
+            return split.core_forward(self, emb, generator)
+        return self.ln_f(self.run_blocks(emb, cache, index, generator))
+
+    def run_blocks(self, x, cache=None, index=0, generator=None):
+        """The blocks alone (no final LayerNorm)."""
         remat = self.cfg.remat and torch.is_grad_enabled() and cache is None
         for layer, block in enumerate(self.blocks):
             if remat:
@@ -236,7 +276,7 @@ class GPTCore(nn.Module):
             else:
                 x = block(x, None if cache is None else (cache[0][layer], cache[1][layer]), index,
                           generator)
-        return self.ln_f(x)
+        return x
 
 
 def _remat_block(block, x, generator):

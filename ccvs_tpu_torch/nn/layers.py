@@ -290,27 +290,41 @@ class ResBlock3D(nn.Module):
         return (out + self.skip(x)) * (1.0 / math.sqrt(2.0))
 
 
-def minibatch_stddev(x, group_size, stddev_feat=1):
+def minibatch_stddev(x, group_size, stddev_feat=1, axis=None):
     """Minibatch standard-deviation feature, NHWC: item ``i`` is grouped with
     the items ``i mod (B / group)`` apart (the reference's ``view(group,
     -1, ...)``), the std over each group, averaged over (h, w, c), appended
-    as a channel."""
-    b, h, w, c = x.shape
+    as a channel. With ``axis`` (a ``parallel.mesh.DataAxis``) ``B`` is the
+    global batch, gathered over the data axis, and this rank's rows are
+    returned."""
+    xs = x if axis is None else axis.gather(x)
+    b, h, w, c = xs.shape
     group = min(b, group_size)
-    y = x.reshape(group, -1, h, w, stddev_feat, c // stddev_feat).float()
+    y = xs.reshape(group, -1, h, w, stddev_feat, c // stddev_feat).float()
     std = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
     std = std.mean(dim=(1, 2, 4), keepdim=True).squeeze(4)  # (n, 1, 1, sf)
-    return torch.cat([x, std.repeat(group, h, w, 1).to(x.dtype)], dim=-1)
+    return torch.cat([x, _local_rows(std.repeat(group, h, w, 1), x, xs, axis).to(x.dtype)],
+                     dim=-1)
 
 
-def minibatch_stddev_3d(x, group_size, stddev_feat=1):
+def minibatch_stddev_3d(x, group_size, stddev_feat=1, axis=None):
     """:func:`minibatch_stddev` of NTHWC videos."""
-    b, t, h, w, c = x.shape
+    xs = x if axis is None else axis.gather(x)
+    b, t, h, w, c = xs.shape
     group = min(b, group_size)
-    y = x.reshape(group, -1, t, h, w, stddev_feat, c // stddev_feat).float()
+    y = xs.reshape(group, -1, t, h, w, stddev_feat, c // stddev_feat).float()
     std = torch.sqrt(y.var(0, unbiased=False) + 1e-8)
     std = std.mean(dim=(1, 2, 3, 5), keepdim=True).squeeze(5)  # (n, 1, 1, 1, sf)
-    return torch.cat([x, std.repeat(group, t, h, w, 1).to(x.dtype)], dim=-1)
+    return torch.cat([x, _local_rows(std.repeat(group, t, h, w, 1), x, xs, axis).to(x.dtype)],
+                     dim=-1)
+
+
+def _local_rows(feat, x, xs, axis):
+    """``feat`` of the gathered batch ``xs`` -> the rows of this rank's ``x``."""
+    if xs is x:
+        return feat
+    b = x.shape[0]
+    return feat[axis.rank * b:(axis.rank + 1) * b]
 
 
 @torch.no_grad()

@@ -243,15 +243,19 @@ def apply_affine(img, G, kernel=SYM6, pad_frac=0.25):
     return upfirdn2d(x, kf[:, None], down=(1, 2), pad=(0, 0, d0, d1))
 
 
-def augment(generator, img, p, draws=None):
+def augment(generator, img, p, draws=None, rows=None):
     """ADA on ``img`` ``(B, H, W, 3)`` in [-1, 1] (``non_leaking.py:460-463``):
     the inverse of the sampled affine cascade as the warp, then the colour
     matrix, computed in fp32; returns ``img``'s dtype. ``draws``, when
     given, is ``(affine, colour)`` raw numbers used instead of drawing from
-    ``generator``."""
+    ``generator``. ``rows`` ``(global_b, slice)`` (a data-parallel step's,
+    ``DataAxis.rows``) draws for the global batch and keeps ``slice``."""
     b, h, w, _ = img.shape
     if draws is None:
-        draws = draw_affine(generator, b), draw_color(generator, b)
+        n = b if rows is None else rows[0]
+        draws = draw_affine(generator, n), draw_color(generator, n)
+        if rows is not None:
+            draws = tuple({k: v[..., rows[1]] for k, v in d.items()} for d in draws)
     p = torch.as_tensor(p, dtype=torch.float32, device=img.device)
     # inv_ex: the same inverse as ``linalg.inv`` without its host check for
     # singular matrices (the cascade's matrices are invertible)

@@ -28,12 +28,16 @@ from ccvs_tpu_torch.nn.decoder import SkipDecoder
 from ccvs_tpu_torch.nn.vgg import vgg_loss
 from ccvs_tpu_torch.ops.resize import resize_bilinear
 from ccvs_tpu_torch.ops.warp import backwarp
+from ccvs_tpu_torch.parallel.mesh import draw_rows
 from ccvs_tpu_torch.train import gan_losses as gl
 
 
 class AELosses:
     def __init__(self, cfg, ae, di=None, dv=None, df=None, vgg=None):
         self.cfg, self.ae, self.di, self.dv, self.df, self.vgg = cfg, ae, di, dv, df, vgg
+        # parallel.mesh.DataAxis of a data-parallel trainer: the context-drop
+        # mask is drawn for the global batch and this rank keeps its rows
+        self.data_axis = None
 
     # ---------- index plans ----------
 
@@ -153,7 +157,8 @@ class AELosses:
 
         keep_mask = None
         if cfg.inter_drop_p > 0:
-            u = torch.rand(z_q.shape[0], generator=generator, device=z_q.device)
+            u = draw_rows(self.data_axis, z_q.shape[0],
+                          lambda n: torch.rand(n, generator=generator, device=z_q.device))
             keep_mask = (u >= cfg.inter_drop_p).float()
 
         def decode(z, inters, km):

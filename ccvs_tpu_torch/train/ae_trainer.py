@@ -10,6 +10,11 @@ The autoencoder and the discriminators compute in ``dtype`` (bf16 by
 default, as the JAX package's trainer) and hold fp32 parameters. Each
 iteration launches kernel K1 twice on CUDA (the image and the video G
 steps' quantization), and once more for each reconstruction of the eval.
+
+With ``mesh`` (``parallel/mesh.py``) the trainers run data-parallel, one
+process a device: each process loads its block of every global batch, the
+steps average the gradients over the data axis, and rank 0 alone logs and
+writes the checkpoints, in the format one process writes.
 """
 
 import dataclasses
@@ -26,10 +31,12 @@ from ccvs_tpu_torch.nn.discriminators import (FeatureDiscriminator, ImageDiscrim
                                               VideoDiscriminator)
 from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.vgg import make_vgg
+from ccvs_tpu_torch.parallel.mesh import DataAxis, mesh_device, put_batch, replicate_tree
 from ccvs_tpu_torch.train.ada import augment
 from ccvs_tpu_torch.train.ae_losses import AELosses
 from ccvs_tpu_torch.train.states import iteration_generator
 from ccvs_tpu_torch.train.steps import make_ae_steps
+from ccvs_tpu_torch.utils import profiling
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from ccvs_tpu_torch.utils.logging import Logger
 from ccvs_tpu_torch.utils.preemption import PreemptionGuard
@@ -42,9 +49,32 @@ def cycle_loader(loader):
 
 def to_device(batch, device):
     """Host batch (numpy arrays or tensors) -> tensors on ``device``."""
-    return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
-                else torch.as_tensor(v)).to(device)
-            for k, v in batch.items()}
+    return put_batch(None, batch, device)
+
+
+def trainer_device(device, mesh):
+    """The device of a trainer given ``device`` and ``mesh``: the mesh's
+    device of this process, which ``device`` must name where given."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = mesh_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device {device} is not the mesh's ({dev})")
+    return dev
+
+
+def host_shard(mesh):
+    """The loaders' ``host_shard`` on ``mesh``: this process's data rank and
+    the data axis's size (the model axis's ranks load the same rows)."""
+    if mesh is None:
+        return "auto"
+    return mesh["data"].get_local_rank(), mesh["data"].size()
+
+
+def is_main_process():
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class FrameAutoencoderTrainer:
@@ -57,9 +87,10 @@ class FrameAutoencoderTrainer:
     ``use_layout`` the autoencoder has its layout twins and the batches
     carry ``layout`` maps."""
 
-    def __init__(self, cfg, vgg_npz=None, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg, vgg_npz=None, dtype=torch.bfloat16, device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = trainer_device(device, mesh)
         acfg = cfg.ae
         kw = dict(dtype=dtype, param_dtype=torch.float32)
         self.ae = FrameAutoencoder(acfg, device=self.device, **kw)
@@ -72,7 +103,7 @@ class FrameAutoencoderTrainer:
             self.vgg = make_vgg(vgg_npz, seed=cfg.seed, device=self.device)
         self.losses = AELosses(acfg, self.ae, self.di, self.dv, self.df, self.vgg)
         self.init_state, self.g_step, self.d_step, self.r1_step = make_ae_steps(
-            self.losses, aug_fn=augment if acfg.use_aug else None)
+            self.losses, aug_fn=augment if acfg.use_aug else None, data_axis=DataAxis.of(mesh))
         self.preempted = False
 
     def init_params(self, seed=None):
@@ -95,9 +126,12 @@ class FrameAutoencoderTrainer:
         group = cfg.data.n_consecutive_img + (1 if cfg.data.load_elastic_view else 0)
         bs_img = max(1, cfg.data.batch_size_img // group)
 
+        shard = host_shard(self.mesh)
+
         def make_img_loader(fold=None):
             ds = create_dataset(cfg.data, phase="train", load_vid=False, fold=fold)
-            return PrefetchLoader(ds, bs_img, num_workers=cfg.data.num_workers, seed=cfg.seed)
+            return PrefetchLoader(ds, bs_img, num_workers=cfg.data.num_workers, seed=cfg.seed,
+                                  host_shard=shard)
 
         if cfg.data.num_folds_train:
             img_loader = FoldCycler(make_img_loader, cfg.data.num_folds_train,
@@ -113,7 +147,8 @@ class FrameAutoencoderTrainer:
             vid_ds = create_dataset(dataclasses.replace(vid_src, vid_len=cfg.ae.vid_len),
                                     phase="train", load_vid=True)
             vid_loader = PrefetchLoader(vid_ds, vid_src.batch_size_vid,
-                                        num_workers=vid_src.num_workers, seed=cfg.seed + 1)
+                                        num_workers=vid_src.num_workers, seed=cfg.seed + 1,
+                                        host_shard=shard)
         return img_loader, vid_loader
 
     @staticmethod
@@ -153,7 +188,7 @@ class FrameAutoencoderTrainer:
         return state, gm, dm, fake
 
     def run(self, n_iter=None, resume=False, eval_every=0, snapshot_every=0,
-            serialize_steps=False):
+            serialize_steps=False, profile_dir=None):
         """Train from a seeded init (or, with ``resume``, the latest
         checkpoint) to ``n_iter`` (default ``cfg.n_iter``): scalars to
         ``logs/<name>/metrics.jsonl``; every ``eval_every`` iterations the
@@ -165,7 +200,9 @@ class FrameAutoencoderTrainer:
         sets ``self.preempted``), a kept one every ``save_freq``; with
         ``cfg.npz_mirror`` the raw generator into that npz as the JAX
         package's ``ae_gen`` tree. ``serialize_steps`` waits for each
-        iteration's device work."""
+        iteration's device work. ``profile_dir``: a ``torch.profiler`` trace
+        of iterations ``start + 10 .. start + 12`` there. The image grids
+        ``fake_img`` / ``real_img`` go to tensorboard every ``log_freq``."""
         from ccvs_tpu_torch.weights import export_params
 
         cfg, acfg = self.cfg, self.cfg.ae
@@ -175,12 +212,18 @@ class FrameAutoencoderTrainer:
         mirror = None
         if cfg.npz_mirror:
             mirror = (cfg.npz_mirror, lambda tree: {"ae_gen": export_params(self.ae)})
-        ckpt = CheckpointManager(run_dir, npz_mirror=mirror)
-        with open(os.path.join(run_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
-        logger = Logger(log_path)
+        main = is_main_process()
+        ckpt = CheckpointManager(run_dir, async_save=cfg.async_ckpt, npz_mirror=mirror)
+        if main:
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+        logger = Logger(log_path, is_main=main, imagenet_norm=cfg.data.imagenet_norm)
 
         self.init_params()
+        if self.mesh is not None:
+            for m in (self.ae, self.di, self.dv, self.df):
+                if m is not None:
+                    replicate_tree(self.mesh, m)
         state = self.init_state()
         start = 0
         if resume:
@@ -199,18 +242,29 @@ class FrameAutoencoderTrainer:
         t0 = time.time()
         self.preempted = False
         eval_count = 0
+        prof = None
         with PreemptionGuard() as guard:
             for it in range(start, n_iter):
+                # a short capture window, as the JAX package's trainer takes
+                if profile_dir and it == start + 10:
+                    prof = profiling.start_trace()
+                if prof is not None and it == start + 13:
+                    profiling.stop_trace(prof, profile_dir, f"ae_iters_{it - 3}_{it - 1}")
+                    prof = None
                 img_batch = to_device(next(img_iter), self.device)
                 vid_batch = None
                 if vid_iter is not None and it % acfg.vid_step_every == 0:
                     vid_batch = to_device(next(vid_iter), self.device)
-                state, gm, dm, _ = self.iteration(state, it, img_batch, vid_batch,
-                                                  iteration_generator(cfg.seed, it, self.device))
+                state, gm, dm, fake = self.iteration(
+                    state, it, img_batch, vid_batch, iteration_generator(cfg.seed, it, self.device))
                 if serialize_steps and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 logger.log_scalars({**gm, **dm}, it, prefix="qvid_generator/")
                 if cfg.log_freq and it % cfg.log_freq == 0:
+                    logger.log_img("qvid_generator/fake_img", fake["img"][:16], 4, it,
+                                   normalize=True)
+                    logger.log_img("qvid_generator/real_img", img_batch["img"][:16], 4, it,
+                                   normalize=True)
                     print(f"iter {it}: g={float(gm['g_loss']):.4f} "
                           f"d={float(dm.get('d_loss', 0.0)):.4f} "
                           f"({(time.time() - t0) / max(1, it - start + 1):.2f}s/it)")
@@ -223,7 +277,7 @@ class FrameAutoencoderTrainer:
                         # the 0.999 EMA lags hundreds of iterations behind
                         rec_raw, scalars["rec_psnr_raw"] = self.rec_eval(state.gen, eval_batch)
                     logger.log_scalars(scalars, it, prefix="qvid_eval/")
-                    if snapshot_every and (eval_count - 1) % max(
+                    if main and snapshot_every and (eval_count - 1) % max(
                             1, round(snapshot_every / eval_every)) == 0:
                         snap = os.path.join(log_path, "snapshots")
                         real = eval_batch[:8].float().cpu().numpy()
@@ -231,18 +285,22 @@ class FrameAutoencoderTrainer:
                         if rec_raw is not None:
                             save_snapshot(snap, it, real, rec_raw[:8].cpu().numpy(),
                                           tag="rec_raw")
-                if it % cfg.save_latest_freq == 0 and it > start:
+                if main and it % cfg.save_latest_freq == 0 and it > start:
                     ckpt.save("qvid", it, state.state_dict(), latest=True)
-                if cfg.save_freq > 0 and it % cfg.save_freq == 0 and it > start:
+                if main and cfg.save_freq > 0 and it % cfg.save_freq == 0 and it > start:
                     ckpt.save("qvid", it, state.state_dict())
-                if guard.triggered:
-                    ckpt.save("qvid", it + 1, state.state_dict(), latest=True)
+                if guard.sync_triggered():
+                    if main:
+                        ckpt.save("qvid", it + 1, state.state_dict(), latest=True)
                     print(f"[preemption] latest checkpoint written at iter {it + 1}; "
                           "exiting cleanly", flush=True)
                     self.preempted = True
                     break
-        if not self.preempted:
+        if prof is not None:
+            profiling.stop_trace(prof, profile_dir, f"ae_iters_{start + 10}_{it}")
+        if main and not self.preempted:
             ckpt.save("qvid", n_iter, state.state_dict(), latest=True)
+        ckpt.wait()
         logger.close()
         return state
 

@@ -2,7 +2,8 @@
 ``ccvs_tpu/train/state_trainer.py``): regression of the states from the
 frozen autoencoder's latents, with the scalar quantizer's VQ loss, periodic
 evaluation and best-checkpoint tracking; and the audio autoencoder of the
-drums model, on spectrogram patches with the perceptual loss.
+drums model, on spectrogram patches with the perceptual loss. Both take
+``mesh=`` for data parallelism (``train/ae_trainer.py``).
 """
 
 import os
@@ -11,11 +12,12 @@ import numpy as np
 import torch
 
 from ccvs_tpu_torch.data import PrefetchLoader, create_dataset
-from ccvs_tpu_torch.device import resolve_device
 from ccvs_tpu_torch.models.state_model import StateModel
 from ccvs_tpu_torch.models.stft_model import StftModel
 from ccvs_tpu_torch.nn.vgg import make_vgg
-from ccvs_tpu_torch.train.ae_trainer import cycle_loader, to_device
+from ccvs_tpu_torch.parallel.mesh import DataAxis, replicate_tree
+from ccvs_tpu_torch.train.ae_trainer import (cycle_loader, host_shard, is_main_process,
+                                             to_device, trainer_device)
 from ccvs_tpu_torch.train.states import make_adam
 from ccvs_tpu_torch.train.steps import make_simple_step
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
@@ -30,9 +32,10 @@ class StateEstimatorTrainer:
     launches K1 twice on CUDA: the frozen encode, and the state quantizer,
     whose codebook takes its gradient through the gather."""
 
-    def __init__(self, cfg, ae, device=None):
+    def __init__(self, cfg, ae, device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = trainer_device(device, mesh)
         if ae.device != self.device:
             raise ValueError(f"the autoencoder is on {ae.device}, the trainer on {self.device}")
         self.ae = ae
@@ -40,7 +43,7 @@ class StateEstimatorTrainer:
         s = cfg.state
         self.init_state, self.step = make_simple_step(
             self.loss_fn, lambda m: make_adam(m.parameters(), s.lr, s.beta1, s.beta2,
-                                              s.weight_decay))
+                                              s.weight_decay), DataAxis.of(mesh))
         self.preempted = False
 
     @torch.no_grad()
@@ -70,9 +73,13 @@ class StateEstimatorTrainer:
         on the valid split and keep the best checkpoint."""
         cfg = self.cfg
         n_iter = n_iter or cfg.n_iter
-        ckpt = CheckpointManager(os.path.join(cfg.save_path, "checkpoints", cfg.name))
-        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name))
+        main = is_main_process()
+        ckpt = CheckpointManager(os.path.join(cfg.save_path, "checkpoints", cfg.name),
+                                 async_save=cfg.async_ckpt)
+        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name), is_main=main)
         self.model.init(seed=cfg.seed)
+        if self.mesh is not None:
+            replicate_tree(self.mesh, self.model)
         state = self.init_state(self.model)
         start = 0
         if resume:
@@ -81,9 +88,10 @@ class StateEstimatorTrainer:
         train_ds = create_dataset(cfg.data, phase="train", load_vid=False)
         valid_ds = create_dataset(cfg.data, phase="valid", load_vid=False)
         loader = PrefetchLoader(train_ds, cfg.data.batch_size_img,
-                                num_workers=cfg.data.num_workers)
+                                num_workers=cfg.data.num_workers, host_shard=host_shard(self.mesh))
+        # every rank evaluates the whole valid split: the same error everywhere
         vloader = PrefetchLoader(valid_ds, cfg.data.batch_size_img, shuffle=False,
-                                 num_workers=cfg.data.num_workers)
+                                 num_workers=cfg.data.num_workers, host_shard=None)
         it_data = iter(cycle_loader(loader))
         best = ckpt.best_metric("state") if resume else float("inf")
         self.preempted = False
@@ -96,16 +104,19 @@ class StateEstimatorTrainer:
                     logger.log_scalar("state/eval_mse", err, it)
                     if err < best:
                         best = err
-                        ckpt.save("state", it, state.state_dict(), best=True)
-                        ckpt.record_best("state", it, err)
-                if it % cfg.save_latest_freq == 0 and it > 0:
+                        if main:
+                            ckpt.save("state", it, state.state_dict(), best=True)
+                            ckpt.record_best("state", it, err)
+                if main and it % cfg.save_latest_freq == 0 and it > 0:
                     ckpt.save("state", it, state.state_dict(), latest=True)
-                if guard.triggered:
-                    ckpt.save("state", it + 1, state.state_dict(), latest=True)
+                if guard.sync_triggered():
+                    if main:
+                        ckpt.save("state", it + 1, state.state_dict(), latest=True)
                     self.preempted = True
                     break
-        if not self.preempted:
+        if main and not self.preempted:
             ckpt.save("state", n_iter, state.state_dict(), latest=True)
+        ckpt.wait()
         logger.close()
         return state
 
@@ -117,16 +128,17 @@ class StftAutoencoderTrainer:
     MSE + VQ + the perceptual loss of VGG19 (``vgg_npz``, or seeded random
     filters), on ``device`` (default: the GPU). K1 once a step on CUDA."""
 
-    def __init__(self, cfg, vgg_npz=None, device=None):
+    def __init__(self, cfg, vgg_npz=None, device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = trainer_device(device, mesh)
         self.model = StftModel(cfg.stft, device=self.device)
         self.vgg = make_vgg(vgg_npz, seed=cfg.seed, device=self.device,
                             context="the STFT perceptual loss")
         s = cfg.stft
         self.init_state, self.step = make_simple_step(
             self.loss_fn, lambda m: make_adam(m.parameters(), s.lr, s.beta1, s.beta2,
-                                              s.weight_decay))
+                                              s.weight_decay), DataAxis.of(mesh))
         self.preempted = False
 
     def loss_fn(self, model, batch):
@@ -135,7 +147,8 @@ class StftAutoencoderTrainer:
     def make_loader(self):
         vid_src = self.cfg.extra_data if self.cfg.extra_data is not None else self.cfg.data
         ds = create_dataset(vid_src, phase="train", load_vid=True)
-        return PrefetchLoader(ds, vid_src.batch_size_vid, num_workers=vid_src.num_workers)
+        return PrefetchLoader(ds, vid_src.batch_size_vid, num_workers=vid_src.num_workers,
+                              host_shard=host_shard(self.mesh))
 
     def run(self, n_iter=None, resume=False):
         """Train from a seeded init (or the latest checkpoint with
@@ -149,10 +162,13 @@ class StftAutoencoderTrainer:
         mirror = None
         if cfg.npz_mirror:
             mirror = (cfg.npz_mirror, lambda tree: {"stft": export_params(self.model)})
+        main = is_main_process()
         ckpt = CheckpointManager(os.path.join(cfg.save_path, "checkpoints", cfg.name),
-                                 npz_mirror=mirror)
-        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name))
+                                 async_save=cfg.async_ckpt, npz_mirror=mirror)
+        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name), is_main=main)
         self.model.init(seed=cfg.seed)
+        if self.mesh is not None:
+            replicate_tree(self.mesh, self.model)
         state = self.init_state(self.model)
         start = 0
         if resume:
@@ -169,15 +185,18 @@ class StftAutoencoderTrainer:
                     mse = float(m["stft_mse"])
                     if mse < best:
                         best = mse
-                        ckpt.save("stft", it, state.state_dict(), best=True)
-                        ckpt.record_best("stft", it, mse)
-                if it % cfg.save_latest_freq == 0 and it > 0:
+                        if main:
+                            ckpt.save("stft", it, state.state_dict(), best=True)
+                            ckpt.record_best("stft", it, mse)
+                if main and it % cfg.save_latest_freq == 0 and it > 0:
                     ckpt.save("stft", it, state.state_dict(), latest=True)
-                if guard.triggered:
-                    ckpt.save("stft", it + 1, state.state_dict(), latest=True)
+                if guard.sync_triggered():
+                    if main:
+                        ckpt.save("stft", it + 1, state.state_dict(), latest=True)
                     self.preempted = True
                     break
-        if not self.preempted:
+        if main and not self.preempted:
             ckpt.save("stft", n_iter, state.state_dict(), latest=True)
+        ckpt.wait()
         logger.close()
         return state

@@ -4,6 +4,13 @@ state or STFT model) encodes each video batch to tokens, the conditioning is
 assembled (state, audio, point-to-point, class labels, deblurring), and the
 GPT takes AdamW steps with fp32 master weights under bf16 compute.
 :func:`blur_video`, the deblurring mode's blur, is shared with serving.
+
+With ``mesh`` the trainer runs data-parallel (``train/ae_trainer.py``); on
+a model axis of more than one it splits the GPT's weights over it
+(``parallel/tp.py``) and with ``cfg.gpt.seq_parallel`` the tokens too
+(``parallel/sp.py``), with ``cfg.gpt.fsdp`` its parameters and moments over
+the data axis (``parallel/fsdp.py``); rank 0 writes the checkpoints whole,
+in the format one process writes.
 """
 
 import os
@@ -13,9 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from ccvs_tpu_torch.data import PrefetchLoader, create_dataset
-from ccvs_tpu_torch.device import resolve_device
 from ccvs_tpu_torch.models.transformer import TokenTransformer
-from ccvs_tpu_torch.train.ae_trainer import cycle_loader, to_device
+from ccvs_tpu_torch.parallel.fsdp import full_train_state, load_full_train_state
+from ccvs_tpu_torch.parallel.mesh import replicate_tree
+from ccvs_tpu_torch.parallel.tp import shard_gpt_params
+from ccvs_tpu_torch.train.ae_trainer import (cycle_loader, host_shard, is_main_process,
+                                             to_device, trainer_device)
 from ccvs_tpu_torch.train.steps import make_transformer_step
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from ccvs_tpu_torch.utils.logging import Logger
@@ -68,9 +78,10 @@ class TransformerTrainer:
     ``TransformerTrainer(dtype=jnp.bfloat16)`` does."""
 
     def __init__(self, cfg, ae, state_model=None, stft_model=None, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = trainer_device(device, mesh)
         for m in (ae, state_model, stft_model):
             if m is not None and m.device != self.device:
                 raise ValueError(f"a model is on {m.device}, the trainer on {self.device}")
@@ -79,7 +90,8 @@ class TransformerTrainer:
                                             param_dtype=torch.float32)
         self.state_model = state_model if cfg.gpt.state and not cfg.gpt.stft else None
         self.stft_model = stft_model if cfg.gpt.stft else None
-        self.init_state, self.step = make_transformer_step(self.transformer, cfg.gpt, cfg.n_iter)
+        self.init_state, self.step = make_transformer_step(self.transformer, cfg.gpt, cfg.n_iter,
+                                                           mesh=mesh)
         self.preempted = False
 
     @torch.no_grad()
@@ -149,23 +161,47 @@ class TransformerTrainer:
         cfg = self.cfg
         n_iter = n_iter or cfg.n_iter
         run_dir = os.path.join(cfg.save_path, "checkpoints", cfg.name)
-        mirror = None
+        main = is_main_process()
+        mirror, exported = None, {}
         if cfg.npz_mirror:
-            mirror = (cfg.npz_mirror, lambda tree: {"gpt": export_params(self.transformer.model)})
-        ckpt = CheckpointManager(run_dir, npz_mirror=mirror)
-        with open(os.path.join(run_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
-        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name))
+            # exported on every rank before the save (a split GPT is gathered)
+            mirror = (cfg.npz_mirror, lambda tree: {"gpt": exported["gpt"]})
+        ckpt = CheckpointManager(run_dir, async_save=cfg.async_ckpt, npz_mirror=mirror)
+        if main:
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+        logger = Logger(os.path.join(cfg.save_path, "logs", cfg.name), is_main=main,
+                        imagenet_norm=cfg.data.imagenet_norm)
 
         self.transformer.init(seed=cfg.seed)
+        split = False
+        if self.mesh is not None:
+            replicate_tree(self.mesh, self.transformer)
+            if self.mesh["model"].size() > 1:
+                # Megatron's split of the weights over the model axis, as the
+                # JAX trainer's (the step splits the tokens with seq_parallel)
+                shard_gpt_params(self.mesh, self.transformer.model)
+            split = cfg.gpt.fsdp or self.mesh["model"].size() > 1
         tstate = self.init_state()
         start = 0
         if resume:
-            tstate = ckpt.load("transformer", "latest", target=tstate)
+            tree = ckpt.load("transformer", "latest")
+            if split:
+                load_full_train_state(tstate, tree)
+            else:
+                tstate.load_state_dict(tree)
             start = tstate.step
+
+        def save(step):
+            tree = full_train_state(tstate) if split else tstate.state_dict()
+            if cfg.npz_mirror:
+                exported["gpt"] = export_params(self.transformer.model)
+            if main:
+                ckpt.save("transformer", step, tree, latest=True)
+
         ds = create_dataset(cfg.data, phase="train", load_vid=True)
         loader = PrefetchLoader(ds, cfg.data.batch_size_vid, num_workers=cfg.data.num_workers,
-                                seed=cfg.seed)
+                                seed=cfg.seed, host_shard=host_shard(self.mesh))
         it_data = iter(cycle_loader(loader))
 
         t0 = time.time()
@@ -182,14 +218,15 @@ class TransformerTrainer:
                     print(f"iter {it}: nll={float(metrics['nll']):.4f} "
                           f"({el / max(1, it - start + 1):.2f}s/it)")
                 if it % cfg.save_latest_freq == 0 and it > start:
-                    ckpt.save("transformer", it, tstate.state_dict(), latest=True)
-                if guard.triggered:
-                    ckpt.save("transformer", it + 1, tstate.state_dict(), latest=True)
+                    save(it)
+                if guard.sync_triggered():
+                    save(it + 1)
                     print(f"[preemption] latest checkpoint written at iter {it + 1}; "
                           "exiting cleanly", flush=True)
                     self.preempted = True
                     break
         if not self.preempted:
-            ckpt.save("transformer", n_iter, tstate.state_dict(), latest=True)
+            save(n_iter)
+        ckpt.wait()
         logger.close()
         return tstate

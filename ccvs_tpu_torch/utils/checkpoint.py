@@ -12,6 +12,11 @@ Crash safety: each file is written to a temporary name and renamed into
 place, and a rolling predecessor is deleted only after its replacement is
 on disk, so a kill at any point leaves a loadable latest.
 
+``async_save=True``: ``save`` copies the tree to the host (so the caller
+may update its tensors in place at once, as the next optimizer step does)
+and a background thread writes it; ``wait()``, ``load`` and the next
+``save`` join the write in flight.
+
 ``npz_mirror`` writes the JAX package's flat fp16 npz beside the checkpoints
 (``ccvs_tpu/port/npz_params.py``: keys ``prefix/a/b/c``, floats in fp16,
 other prefixes of the file kept), so a GPT that the port trains loads into
@@ -21,6 +26,7 @@ the JAX package.
 import json
 import os
 import re
+import threading
 from typing import Any, Dict
 
 import numpy as np
@@ -58,6 +64,20 @@ def update_params_npz(path: str, **trees: Dict[str, np.ndarray]) -> None:
     os.replace(tmp, path)
 
 
+def host_copy(tree):
+    """``tree`` with every tensor copied to the CPU and every array copied:
+    nothing of the result shares memory with the caller's."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    if isinstance(tree, dict):
+        return type(tree)((k, host_copy(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     """Checkpoints of a run under ``path``, one file a checkpoint:
     ``{label}_{step:08d}.pt``, ``{label}_latest_{step:08d}.pt``,
@@ -65,12 +85,16 @@ class CheckpointManager:
 
     ``npz_mirror=(npz_path, extract)``: after every ``latest`` write, also
     merge-write ``extract(tree)`` (``{name: flat dict}``) into ``npz_path``
-    with :func:`update_params_npz`."""
+    with :func:`update_params_npz`; with ``async_save`` ``extract`` runs
+    inside ``save`` and the npz is written after the durable latest."""
 
-    def __init__(self, path: str, npz_mirror=None):
+    def __init__(self, path: str, async_save: bool = False, npz_mirror=None):
         self.path = os.path.abspath(path)
         os.makedirs(self.path, exist_ok=True)
+        self.async_save = async_save
         self.npz_mirror = npz_mirror
+        self._thread = None
+        self._error = None
 
     def _file(self, label: str, step: int, kind: str = "") -> str:
         kind = f"{kind}_" if kind else ""
@@ -92,6 +116,22 @@ class CheckpointManager:
         ``state_dict()``s give them); with ``latest`` / ``best`` keep rolling
         copies."""
         kinds = [k for k, on in (("latest", latest), ("best", best)) if on] or [""]
+        mirror = None
+        if latest and self.npz_mirror is not None:
+            npz_path, extract = self.npz_mirror
+            mirror = npz_path, extract(tree)
+        if not self.async_save:
+            self._write(label, step, tree, kinds, mirror)
+            return
+        self.wait()  # one write in flight at a time
+        tree = host_copy(tree)
+        if mirror is not None:
+            mirror = mirror[0], host_copy(mirror[1])
+        self._thread = threading.Thread(target=self._background,
+                                        args=(label, step, tree, kinds, mirror), daemon=True)
+        self._thread.start()
+
+    def _write(self, label, step, tree, kinds, mirror):
         for kind in kinds:
             f = self._file(label, step, kind)
             olds = [p for _, p in (self._find(label, kind) if kind else []) if p != f]
@@ -101,9 +141,23 @@ class CheckpointManager:
             # predecessors go only once the replacement is on disk
             for p in olds:
                 os.remove(p)
-        if latest and self.npz_mirror is not None:
-            npz_path, extract = self.npz_mirror
-            update_params_npz(npz_path, **extract(tree))
+        if mirror is not None:
+            update_params_npz(mirror[0], **mirror[1])
+
+    def _background(self, *args):
+        try:
+            self._write(*args)
+        except BaseException as e:  # noqa: BLE001 - raised by the next join
+            self._error = e
+
+    def wait(self):
+        """Join the write in flight (a no-op without one); raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
 
     def record_best(self, label: str, step: int, metric: float):
         """Persist the best checkpoint's metric, so that a resumed run does
@@ -122,6 +176,7 @@ class CheckpointManager:
         """The checkpoint ``which`` ("latest", "best" or a step) of
         ``label``; loaded into ``target`` (anything with ``load_state_dict``)
         and ``target`` returned, where one is given."""
+        self.wait()
         if which in ("latest", "best"):
             found = self._find(label, which)
             if not found:
@@ -138,5 +193,7 @@ class CheckpointManager:
         return target
 
     def step_of(self, label: str, which="latest") -> int:
+        """The step of the newest durable checkpoint ``which`` (0 without
+        one); a write in flight is not joined."""
         found = self._find(label, which if which in ("latest", "best") else "")
         return found[-1][0] if found else 0

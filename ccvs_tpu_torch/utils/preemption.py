@@ -13,8 +13,9 @@ the step in flight, writes a ``latest`` checkpoint and exits cleanly, so
                 break
 
 The guard only records the signal; the training loop decides when to act,
-so the checkpoint is always written at a step boundary. One process only:
-agreeing on the flag across processes comes with the parallel layer.
+so the checkpoint is always written at a step boundary. Under
+``torch.distributed`` the loop asks :meth:`PreemptionGuard.sync_triggered`,
+so that every rank stops at the same iteration.
 """
 
 import signal
@@ -40,15 +41,44 @@ class PreemptionGuard:
 
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
-    def __init__(self):
+    def __init__(self, group=None):
         self._triggered = threading.Event()
         self._prev = {}
         self._installed = False
+        self._group = group
+        self._sync_calls = 0
+        self._last_global = False
 
     # -- flag API -----------------------------------------------------
     @property
     def triggered(self) -> bool:
         return self._triggered.is_set()
+
+    def sync_triggered(self, every: int = 10) -> bool:
+        """The flag agreed over the ranks of ``group`` (default: the default
+        process group). The machines of a job get SIGTERM at slightly
+        different times; a rank that stopped on its local flag would leave
+        the others waiting in the next step's collectives. So every
+        ``every``-th call all-reduces the local flags (MAX), and between
+        those calls the last global value is returned, never the local flag;
+        a stop comes at most ``every - 1`` steps late. Every rank calls this
+        once a step, so the schedule agrees. One process: :attr:`triggered`,
+        no collective."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size(self._group) == 1:
+            return self.triggered
+        self._sync_calls += 1
+        if self._last_global or (self._sync_calls - 1) % max(1, every):
+            return self._last_global
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend(self._group) == "nccl" else torch.device("cpu")
+        flag = torch.tensor([int(self.triggered)], dtype=torch.int32, device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+        self._last_global = bool(flag.item())
+        return self._last_global
 
     def trigger(self, signum=None):
         """Latch the flag (idempotent). Called by the signal handler; may

@@ -116,15 +116,18 @@ def export_params(module):
     out)``, ``nn.Embedding`` ``weight`` -> ``embedding``, a LayerNorm's
     ``weight`` -> ``scale``, and the per-layer ``blocks.<layer>`` stacked
     back along a leading axis under ``blocks/block``. The reverse of
-    :func:`load_params`."""
+    :func:`load_params`. Parameters split over a mesh (``parallel/``) are
+    gathered whole: a collective, which every rank calls."""
     from ccvs_tpu_torch.nn.gpt import LayerNorm
+    from ccvs_tpu_torch.parallel.fsdp import full_tensor, tp_split
 
     leaf = {nn.Linear: "kernel", nn.Embedding: "embedding", LayerNorm: "scale",
             nn.LayerNorm: "scale"}
     flat = {}
     for mname, m in module.named_modules():
         for pname, p in m.named_parameters(recurse=False):
-            a = p.detach().float().cpu().numpy()
+            full = (f"{mname}." if mname else "") + pname
+            a = full_tensor(p.detach(), tp_split(module, full)).float().cpu().numpy()
             if pname == "weight" and type(m) in leaf:
                 pname = leaf[type(m)]
                 if pname == "kernel":

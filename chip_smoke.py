@@ -43,7 +43,7 @@ Phases, each printing its wall time:
    along the GPU's tokens (each product bit-equal on the same input, each
    product's input within 1e-4 of its row's max), its video within 1e-3;
 7. modes: the full-width BAIR-256 state-conditioned, point-to-point,
-   unconditional and int8 rollouts, 8 frames each (``MODE_LEN``), each run once with its launches counted
+   unconditional and int8 rollouts, 4 frames each (``MODE_LEN``), each run once with its launches counted
    as in phase 3 and its output checked (states in [0, 1] and the context
    frame's state tokens kept; the real end frame last, the end frame's
    prefix and delta moving the first frame's tokens and its features the
@@ -52,7 +52,7 @@ Phases, each printing its wall time:
    the preset's 45 frames from 15, a seeded spectrogram's audio tokens
    given, the window slides 8 times: 576 decode steps), the audio tokens given back
    unaltered and another spectrogram shown to move the tokens;
-9. serving: on full-width BAIR-256 at 8 frames, step-by-step generation
+9. serving: on full-width BAIR-256 at 4 frames, step-by-step generation
    (each frame's tokens its re-encode's), greedy beam search of 4 (the
    result the best hypothesis, the scores those of a full forward),
    ``generate_from_image`` with ``down_size`` 64, then deblurring (the
@@ -114,8 +114,8 @@ Phases, each printing its wall time:
    ``generate(layout=...)``; (b) ADA at full BAIR-256 width (3 timed
    iterations, one with R1, K1 2 an iteration) and
    ``runs_r5/r5_bair_eval_config.json`` as it is; (c) the full-width layout
-   rollout (8 frames of 64 frame and 64 layout tokens in a 2048-token
-   window; K1 4, K2 24 x 896), a layout transformer step on 2 clips (K1 2)
+   rollout (4 frames of 64 frame and 64 layout tokens in a 2048-token
+   window; K1 4, K2 24 x 384), a layout transformer step on 2 clips (K1 2)
    and an autoencoder iteration with layouts (K1 4);
 14. GPT variants and reference checkpoints: (a) small fp32 configurations
    on the card against the CPU: the video rollout with ``emb_mode`` None
@@ -128,8 +128,8 @@ Phases, each printing its wall time:
    BAIR-256 with "spatio-temporal" from ``qvid_e`` / ``qvid_q`` / ``qvid_g``
    / ``transformer_t`` state dicts in the reference's keys, drawn on the
    card, loaded through ``port_pytorch`` (every tensor equal to its
-   source) and served: a 2-frame warm-up and one timed 8-frame rollout (K1
-   2, K2 24 x 448), its time a decode step beside phase 3's; (c) the full-width transformer step with
+   source) and served: a 2-frame warm-up and one timed 4-frame rollout (K1
+   2, K2 24 x 192), its time a decode step beside phase 3's; (c) the full-width transformer step with
    ``emb_mode`` None (1 warm-up, 3 timed steps, K1 once a step); (d)
    ``ContinuousTransformer`` at the BAIR trunk's width (24 x 16 x 1024,
    512-d inputs, 4 proposals): loss, backward and AdamW on 16 x 1024
@@ -149,15 +149,38 @@ Phases, each printing its wall time:
    a planted fault (the deformable conv's ky and kx taps swapped) caught,
    and the image G step under set A held to the CPU step by step for 2
    iterations; (b) full-width BAIR-256 with set A (deformable conv, masked
-   flow, tradeoff, skip-RGB, ``tanh``): an 8-frame rollout (K1 2, K2 24 x
-   448), its decode stage alone, and an AE iteration with R1 at 24 images
+   flow, tradeoff, skip-RGB, ``tanh``): a 4-frame rollout (K1 2, K2 24 x
+   192), its decode stage alone, and an AE iteration with R1 at 24 images
    and 4 clips (K1 2), each step timed; (c) set B (``no_corr``,
    ``skip_mode`` "dec", ``keep_first`` with ``n_first`` 2, the tiled-x
    convs): the rollout, its decode stage a frame beside set A's, the
    preset's and phase 3's, and a 17-frame decode that pins the FIFO; (d)
    ``aspect_ratio`` 2 (256 x 512, ``z_shape`` (8, 16), ``no_proj``): K1 at
    (3072, 512) x (1024, 512) against the plain search, one image G step (K1
-   once) and one image D step at 24 images, timed, with the peak memory.
+   once) and one image D step at 24 images, timed, with the peak memory;
+16. data, utilities and the parallel layer: (a) a raw BAIR-HD tree in the
+   softmotion layout (17 trajectories of 30 JPEGs) through
+   ``preprocess_bairhd`` at dim 256, ``compute_folds`` /
+   ``compute_metadata`` on AVIs of the prepared frames, the native loader
+   built from ``native/loader.cpp`` (or why not) and its
+   ``decode_jpeg_batch`` of 256 JPEGs of 256x256 on 8 threads timed
+   against PIL, the prepared tree through the BAIR dataset and
+   ``PrefetchLoader``; (b) ``init_distributed`` over NCCL at world size 1
+   and ``make_mesh(1)``: phase 10 (b)'s full-width transformer step fed by
+   (a)'s loader, unwrapped once, then through DP and FSDP (the first
+   step's ``nll`` and ``gnorm`` those of the unwrapped step from the same
+   state, 3 timed steps each, K1 exactly once a step, seconds and peak
+   beside phase 10 (b)'s; FSDP's parameters DTensors split over ``data``),
+   a small fp32 configuration unwrapped / DP / FSDP within 1e-6 of the
+   largest entry, and a DP autoencoder iteration with and without R1 at
+   phase 11 (b)'s batch beside it (K1 2 an iteration); (c) the dry run
+   (``run_tiny_multichip_step``) at world 1, then two processes on the one
+   card over gloo, the card's tensors in the collectives, whose tiny DP
+   step equals one process's; (d) on the DP trainer, ``trace()`` around
+   three steps (its largest kernels; K1's three launches of each of its
+   kernels), an async save of the whole GPT state while the next step runs
+   (that step beside one without a save in flight; the loaded state
+   bit-equal to the saved one) and ``sync_triggered`` at world 1.
 
 Phase 0 prints the card's name and power limit; the last three lines are the
 kernels' JSON record, the card line again, and the result line ``{"ok":
@@ -189,13 +212,15 @@ PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_INT8_PER_S = 1979e12    # H100 SXM int8 on the tensor cores, dense
 BATCH, VID_LEN = 2, 16
-# frames of the rollouts that drive one mode each (phases 7, 9, 13 (c) and
-# 14 (b)) and of the drums clip (phase 8, from 45): depth cut to keep the
-# script within half its time limit; phases 3 and 4 roll out at full depth
-MODE_LEN, DRUMS_LEN = 8, 24
+# frames of the rollouts that drive one mode each (phases 7, 9, 13 (c),
+# 14 (b) and 15; 8 until phase 16 came) and of the drums clip (phase 8,
+# from 45): depth cut to keep the script within half its time limit;
+# phases 3 and 4 roll out at full depth
+MODE_LEN, DRUMS_LEN = 4, 24
 ROLLOUT_S = {}  # the wall time of each rollout of run_path, by name
 DECODE_S = {}  # phase_rollout's warm-up decode stage, seconds a generated frame, by name
 KINETICS_LEN = 24  # frames: past the 20 of the 1280-token window, so it slides
+TRAIN_REF = {}  # phase 10 (b)'s and 11 (b)'s seconds and peaks, beside phase 16's
 
 
 def log(*parts):
@@ -779,7 +804,7 @@ def phase_modes(records, card):
 
     size = 64  # tokens a frame in every BAIR preset
     # state: 2 state tokens before each frame's 64 (a 1056-token window);
-    # 462 decode steps past the context frame's 66 tokens. K1: the encode,
+    # (MODE_LEN - 1) x 66 decode steps past the context frame's 66 tokens. K1: the encode,
     # the state quantizer, the context re-encode
     cfg = bairhd_state_config()
     _, _, gen = build_models(cfg)
@@ -796,7 +821,7 @@ def phase_modes(records, card):
         f"{float(fs.max()):.4f}], the context frame's state tokens kept")
     del gen
 
-    # p2p: the end frame's 64 tokens are a prefix; 384 decode steps past the
+    # p2p: the end frame's 64 tokens are a prefix; (MODE_LEN - 2) x 64 decode steps past the
     # context frame, before the real end frame
     cfg = bairhd_p2p_config()
     _, _, gen = build_models(cfg)
@@ -808,20 +833,20 @@ def phase_modes(records, card):
     check_p2p(cfg, gen, vid, out)
     del gen
 
-    # unconditional: a start token and no context frame; 512 decode steps
+    # unconditional: a start token and no context frame; 256 decode steps
     cfg = bairhd_unc_config()
     _, _, gen = build_models(cfg)
     run_path(records, card, cfg, gen, clip(cfg, MODE_LEN), 0, 1, MODE_LEN * size)
     del gen
 
-    # int8: bairhd with serve_int8; 448 decode steps
+    # int8: bairhd with serve_int8; 192 decode steps
     base = bairhd_config()
     cfg = dataclasses.replace(base, name="bairhd_int8",
                               gpt=dataclasses.replace(base.gpt, serve_int8=True))
     ae, tr, gen = build_models(cfg)
     vid = clip(cfg, MODE_LEN)
     out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (MODE_LEN - 1) * size)
-    # one decode step at the rollout's last position (511 tokens cached),
+    # one decode step at the rollout's last position (255 tokens cached),
     # int8 against bf16
     model = tr.model
     code = out["code"]
@@ -901,7 +926,7 @@ def phase_drums(records, card):
 
 def phase_serving(records, card):
     """The rest of serving on full-width BAIR-256, bf16, batch 2, each run
-    once with its launches counted, 8 frames each (``MODE_LEN``):
+    once with its launches counted, 4 frames each (``MODE_LEN``):
     step-by-step generation, ``generate_from_image`` with ``down_size`` 64,
     greedy beam search of 4 hypotheses, then deblurring and class labels as
     ``bairhd_config`` overrides."""
@@ -912,7 +937,7 @@ def phase_serving(records, card):
 
     base = bairhd_config()
     size = 64
-    steps = (MODE_LEN - 1) * size  # 448: 7 frames past the context frame
+    steps = (MODE_LEN - 1) * size  # 192: 3 frames past the context frame
     ae, tr, gen = build_models(base)
     vid = clip(base, MODE_LEN)
 
@@ -932,7 +957,7 @@ def phase_serving(records, card):
         f"{100 * float((batched != reenc).float().mean()):.2f}% of them (bf16)")
 
     # generate_from_image: one 256x256 frame, degraded to 64x64 and back,
-    # continued to 8 frames: K1 2 (the clip's encode, the context re-encode)
+    # continued to MODE_LEN frames: K1 2 (the clip's encode, the context re-encode)
     img = vid[:, 0]
     run_path(records, card, base, gen, vid, 1, 2, steps,
              run=lambda g: gen.generate_from_image(img, g, vid_len=MODE_LEN, down_size=64),
@@ -974,14 +999,15 @@ def phase_serving(records, card):
     del gen, tr, hyps
 
     # deblurring: the blurred clip's 64 tokens a frame are the given state
-    # stream before each frame's 64 (8 frames fill the 1024-token window);
-    # decode steps from the first generated frame's tokens, at 192, to 1024.
-    # K1: the clip's encode, the blurred clip's, the blurred context's
+    # stream before each frame's 64 (8 frames would fill the 1024-token
+    # window); decode steps from the first generated frame's tokens, at 192,
+    # to 128 a frame. K1: the clip's encode, the blurred clip's, the blurred
+    # context's
     cfg = dataclasses.replace(base, name="bairhd_deblur", gpt=dataclasses.replace(
         base.gpt, deblurring=True, state_size=64, state_num=1024, blur_sigma=10))
     ae, _, gen = build_models(cfg)
-    short = vid[:, :8]
-    out, _ = run_path(records, card, cfg, gen, short, 1, 3, 1024 - 3 * size)
+    short = vid[:, :MODE_LEN]
+    out, _ = run_path(records, card, cfg, gen, short, 1, 3, (2 * MODE_LEN - 3) * size)
     if not torch.equal(out["state_code"], ae.encode(out["blur"])["code"].reshape(BATCH, -1)):
         raise AssertionError("deblurring: the blurred clip's tokens did not come back unaltered")
     log(f"bairhd_deblur: the blurred clip's tokens given back unaltered; blur moved the frames "
@@ -989,11 +1015,11 @@ def phase_serving(records, card):
     del gen
 
     # class labels (101, UCF-101's classes), drawn at random: a label before
-    # the body, 7 frames of 64 decode steps
+    # the body, MODE_LEN - 1 frames of 64 decode steps
     cfg = dataclasses.replace(base, name="bairhd_cat101", gpt=dataclasses.replace(
         base.gpt, cat=True, num_lbl=101))
     _, tr, gen = build_models(cfg)
-    out, _ = run_path(records, card, cfg, gen, short, 1, 2, 7 * size)
+    out, _ = run_path(records, card, cfg, gen, short, 1, 2, (MODE_LEN - 1) * size)
     lbl = out["vid_lbl"]
     if not bool(((lbl >= 0) & (lbl < 101)).all()):
         raise AssertionError(f"class labels: drawn labels {lbl.tolist()} out of range")
@@ -1498,6 +1524,7 @@ def phase_train_bairhd(records, card):
     if launches != 10:
         raise AssertionError(f"train bairhd: K1 launched {launches} times in 10 steps, expected 10")
     records["vq_argmin"]["launches_by_rollout"]["train_bairhd (10 steps)"] = launches
+    TRAIN_REF["transformer"] = (dt / 10, peak)
     enc, stp = statistics.median(enc_ms[2:]), statistics.median(step_ms[2:])
     log(f"train bairhd: {dt / 10:.4f} s a step over 10 steps ({n_tokens * 10 / dt:.0f} tokens/s); "
         f"median encode {enc:.2f} ms (CUDA events), GPT step {stp:.2f} ms; peak memory "
@@ -2153,6 +2180,7 @@ def phase_ae_bairhd(records, card):
     if not math.isfinite(float(psnr)):
         raise AssertionError(f"train ae bairhd: eval PSNR {float(psnr)}")
     plain = [w for w, it in zip(wall[2:], its[2:]) if it % 16]
+    TRAIN_REF["ae"] = (statistics.median(plain), wall[-1], peak)
     state = ae_loader_fed(tr, state, statistics.median(plain))
     log(f"train ae bairhd: {dt / 5:.4f} s an iteration over 5 timed iterations (one with R1); "
         f"without R1 median {statistics.median(plain):.4f} s, with R1 {wall[-1]:.4f} s "
@@ -2957,9 +2985,9 @@ def bairhd_layout_config():
 
 def phase_layout_bairhd(records, card):
     """(c) Layouts at full BAIR-256 width (:func:`bairhd_layout_config`):
-    one rollout at batch 2, ``MODE_LEN`` (8) frames from 1 context frame,
+    one rollout at batch 2, ``MODE_LEN`` (4) frames from 1 context frame,
     bf16, sampled layouts past the context (a 2-frame warm-up, then the run
-    timed with its launches counted: K1 4, K2 24 x 896); one transformer step on
+    timed with its launches counted: K1 4, K2 24 x 384); one transformer step on
     2 clips of 16 frames with their layout tokens (K1 2: the frames' and
     the layouts' encodes); one autoencoder iteration with layouts at 24
     images and 4 clips (K1 4: the image and layout quantizers of both G
@@ -3264,7 +3292,7 @@ def phase_reference_checkpoint(records, card):
     through ``port_pytorch`` into bf16 models, every loaded tensor its
     source's (the GPT's Linear weights through the Dense kernels' transpose
     and back), then served: a 2-frame warm-up and one timed rollout of
-    ``MODE_LEN`` (8) frames, launches as in phase 3."""
+    ``MODE_LEN`` (4) frames, launches as in phase 3."""
     import dataclasses
 
     import torch
@@ -3724,7 +3752,7 @@ def _options_config(name, **over):
 
 
 def _options_rollout(records, card, cfg):
-    """A 2-frame warm-up and one ``MODE_LEN`` (8) frame rollout of ``cfg``
+    """A 2-frame warm-up and one ``MODE_LEN`` (4) frame rollout of ``cfg``
     (bf16, batch 2, 1 context frame; K1 2, K2 24 a decode step), then the
     decode stage of its tokens alone; returns the models, the clip, the
     tokens and the decode stage's seconds."""
@@ -4554,6 +4582,534 @@ def _to_cpu(tree):
     return copy.deepcopy(tree)
 
 
+# ---------------------------------------------------------------- phase 16
+
+PHASE16_TIMED = 3  # timed full-width transformer steps of DP and of FSDP
+
+
+def write_raw_bairhd(root, n_traj, n_frames=30, width=1024, height=256, seed=0):
+    """A raw BAIR-HD tree in the softmotion layout that ``preprocess_bairhd``
+    reads (``softmotion_0511/aux1/traj_group0/traj{k}/images/
+    aux1_full_cropped_im{i}_*.jpg``): ``n_traj`` trajectories of ``n_frames``
+    JPEGs, wide enough for the crop ``x[157:967]``, a square moving over a
+    colour gradient."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    for k in range(n_traj):
+        d = os.path.join(root, "softmotion_0511", "aux1", f"traj_group{k // 1000}", f"traj{k}",
+                         "images")
+        os.makedirs(d, exist_ok=True)
+        base = np.stack([xx * 255 // width, yy * 255 // height,
+                         np.full_like(xx, 40 * (k % 6))], -1).astype(np.uint8)
+        x0, y0 = rng.randint(200, 700), rng.randint(10, height - 70)
+        vx, vy = rng.randint(-8, 9), rng.randint(-3, 4)
+        for i in range(n_frames):
+            f = base.copy()
+            x, y = x0 + vx * i, int(np.clip(y0 + vy * i, 0, height - 60))
+            f[y:y + 60, x:x + 60] = (230, 60, 30)
+            Image.fromarray(f).save(os.path.join(d, f"aux1_full_cropped_im{i}_{k}{i:02d}.jpg"),
+                                    quality=92)
+
+
+def phase_data_tools(card, root):
+    """(a) Data: a raw BAIR-HD tree of 17 trajectories through
+    ``preprocess_bairhd`` at dim 256 (16 train, 1 test), ``compute_folds`` /
+    ``compute_metadata`` on AVIs of 4 prepared trajectories, the native
+    loader's ``decode_jpeg_batch`` of 256 frames of 256x256 (8 threads)
+    against PIL, and the prepared tree through the BAIR dataset and
+    ``PrefetchLoader``. Returns ``(cfg, loader)``."""
+    import dataclasses
+    import glob
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.data import PrefetchLoader, create_dataset, native, prep
+    from ccvs_tpu_torch.data.clips import load_index
+    from ccvs_tpu_torch.utils import video_io
+
+    n_train, n_test = 16, 1
+    t0 = time.perf_counter()
+    write_raw_bairhd(root, n_train + n_test)
+    t_raw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep.preprocess_bairhd(root, dim=256, num_workers=8, train_range=(0, n_train),
+                           test_range=(n_train, n_train + n_test))
+    t_prep = time.perf_counter() - t0
+    out = os.path.join(root, "original_frames_256")
+    pngs = sorted(glob.glob(os.path.join(out, "*", "*", "*.png")))
+    if len(pngs) != (n_train + n_test) * 30:
+        raise AssertionError(f"data: preprocess_bairhd wrote {len(pngs)} frames, expected "
+                             f"{(n_train + n_test) * 30}")
+    if np.asarray(Image.open(pngs[0])).shape != (256, 256, 3):
+        raise AssertionError("data: a prepared frame is not 256x256x3")
+    log(f"data: raw tree of {n_train + n_test} x 30 JPEGs (1024 x 256) written in {t_raw:.2f} s; "
+        f"preprocess_bairhd at dim 256, 8 workers: {len(pngs)} frames in {t_prep:.2f} s = "
+        f"{len(pngs) / t_prep:.1f} frames/s")
+    avis = []
+    for k in range(4):
+        frames = np.stack([np.asarray(Image.open(p)) for p in
+                           sorted(glob.glob(os.path.join(out, "train", f"{k:05d}", "*.png")))])
+        avis.append(os.path.join(root, "avi", f"{k:05d}.avi"))
+        os.makedirs(os.path.dirname(avis[-1]), exist_ok=True)
+        video_io.write_video(avis[-1], frames, fps=4)
+    prep.compute_folds(avis, os.path.join(root, "folds"), 2)
+    prep.compute_metadata(avis, os.path.join(root, "metadata.pkl.gz"), clip_len=16, skip=4)
+    index = load_index(os.path.join(root, "metadata.pkl.gz"))
+    if len(index) != 4 * ((30 - 16) // 4 + 1):
+        raise AssertionError(f"data: compute_metadata indexed {len(index)} clips, expected 16")
+
+    jpgs = []
+    os.makedirs(os.path.join(root, "jpg"))
+    for i, p in enumerate(pngs[:256]):
+        jpgs.append(os.path.join(root, "jpg", f"{i:03d}.jpg"))
+        Image.open(p).save(jpgs[-1], quality=92)
+
+    def pil(path):
+        return np.asarray(Image.open(path).convert("RGB"))
+
+    t0 = time.perf_counter()
+    ref = np.stack([pil(p) for p in jpgs])
+    fps_pil = len(jpgs) / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(pil, jpgs))
+        fps_pil8 = len(jpgs) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    built = native.available()
+    t_build = time.perf_counter() - t0
+    if built:
+        native.decode_jpeg_batch(jpgs[:8], 256, 256, n_threads=8)
+        t0 = time.perf_counter()
+        arr = native.decode_jpeg_batch(jpgs, 256, 256, n_threads=8)
+        fps_native = len(jpgs) / (time.perf_counter() - t0)
+        diff = float(np.abs(arr.astype(np.int16) - ref.astype(np.int16)).mean())
+        if arr.shape != ref.shape or diff > 2.0:
+            raise AssertionError(f"data: the native decode differs from PIL's by {diff} levels")
+        log(f"data: native loader built from native/loader.cpp into {native.LIB_PATH} "
+            f"({t_build:.2f} s); decode_jpeg_batch of {len(jpgs)} JPEGs of 256x256, 8 threads: "
+            f"{fps_native:.0f} frames/s; PIL {fps_pil:.0f} frames/s on one thread, "
+            f"{fps_pil8:.0f} on 8; mean |native - PIL| {diff:.3f} levels; host of {card}")
+    else:
+        log(f"data: native loader not built ({native.build_log.strip()[-300:]}); PIL "
+            f"{fps_pil:.0f} frames/s on one thread, {fps_pil8:.0f} on 8")
+
+    base = bairhd_config()
+    cfg = base.replace(name="phase16", data=dataclasses.replace(base.data, dataroot=root,
+                                                                num_workers=8))
+    ds = create_dataset(cfg.data, phase="train", load_vid=True)
+    if len(ds) != n_train:
+        raise AssertionError(f"data: the BAIR dataset found {len(ds)} clips, expected {n_train}")
+    loader = PrefetchLoader(ds, cfg.data.batch_size_vid, num_workers=8, seed=0, host_shard=None)
+    t0 = time.perf_counter()
+    batch = next(iter(loader))
+    t_batch = time.perf_counter() - t0
+    if batch["vid"].shape != (16, 16, 256, 256, 3):
+        raise AssertionError(f"data: a loader batch is {batch['vid'].shape}")
+    log(f"data: the BAIR dataset's PrefetchLoader (8 threads): a batch of 16 clips x 16 frames "
+        f"in {t_batch:.3f} s = {256 / t_batch:.0f} frames/s (cold, from the prepared PNGs)")
+    return cfg, loader
+
+
+def _tiny_dp_step(mesh, dev):
+    """The dry run's tiny GPT (``train/dryrun.py``): one data-parallel step
+    on this rank's rows of a seeded global batch of 4; ``(nll, gnorm, whole
+    parameters after it)``."""
+    import torch
+    from ccvs_tpu_torch.models.transformer import TokenTransformer
+    from ccvs_tpu_torch.parallel.mesh import shard_batch
+    from ccvs_tpu_torch.train.dryrun import GPT_CFG
+    from ccvs_tpu_torch.train.steps import make_transformer_step
+
+    code = torch.randint(0, GPT_CFG.z_num, (4, GPT_CFG.z_len),
+                         generator=torch.Generator().manual_seed(0))
+    tr = TokenTransformer(GPT_CFG, dtype=torch.float32, device=dev).init(0)
+    init, step = make_transformer_step(tr, GPT_CFG, n_iter=10, mesh=mesh)
+    state = init()
+    for _ in range(2):  # the first update has lr 0
+        rows = code if mesh is None else shard_batch(mesh, code)
+        state, m = step(state, {"code": rows.to(dev)})
+    return (float(m["nll"]), float(m["gnorm"]),
+            {k: v.detach().cpu() for k, v in tr.model.named_parameters()})
+
+
+def _gloo_rank(rank, port, out_dir):
+    """A rank of the two-process gloo group on the one card (phase 16 (c))."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+        res = _tiny_dp_step(mesh, "cuda")
+    except BaseException as e:  # noqa: BLE001 - reported by the parent, which fails
+        import traceback
+
+        res = {"error": f"{type(e).__name__}: {e}\n{traceback.format_exc()[-1500:]}"}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def gloo_on_one_card():
+    """(c) Two processes on the one card over gloo, the card's tensors in
+    the collectives: the tiny DP step of 2 x 2 rows against the one-process
+    step on all 4. Returns the ranks' results and the reference."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+    from ccvs_tpu_torch.parallel.mesh import _free_port
+
+    ref = _tiny_dp_step(None, "cuda")
+    out_dir = tempfile.mkdtemp(prefix="phase16_gloo_")
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(240)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung:
+        raise AssertionError(f"parallel: {len(hung)} gloo ranks on the card hung past 240 s")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)], ref
+
+
+def _small_parallel_parity(mesh, device="cuda"):
+    """A small fp32 configuration (phase 10 (a)'s) on the card: one
+    transformer step unwrapped, through DP and through FSDP on ``mesh``,
+    from the same seeded state and batch; the largest difference of
+    ``nll``, ``gnorm`` and each gradient, relative to its largest entry."""
+    import dataclasses
+
+    import torch
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.parallel.fsdp import full_tensor
+    from ccvs_tpu_torch.train.ae_trainer import to_device
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    cfg = small_train_config()
+    batch = to_device(_train_data(cfg, "train", 1)[0], device)
+    ae = FrameAutoencoder(cfg.ae, dtype=torch.float32, device=device).init(seed=0)
+    out = {}
+    for name, c, m in (("plain", cfg, None), ("dp", cfg, mesh),
+                       ("fsdp", cfg.replace(gpt=dataclasses.replace(cfg.gpt, fsdp=True)), mesh)):
+        tr = TransformerTrainer(c, ae, dtype=torch.float32, device=device, mesh=m)
+        tr.transformer.init(seed=1)
+        state, met = tr.step(tr.init_state(), tr.encode_batch(batch))
+        out[name] = ({k: float(met[k]) for k in ("nll", "gnorm")},
+                     {n: full_tensor(p.grad).float() for n, p in
+                      tr.transformer.model.named_parameters()})
+    worst = 0.0
+    for name in ("dp", "fsdp"):
+        (m0, g0), (m1, g1) = out["plain"], out[name]
+        scale = max(float(g.abs().max()) for g in g0.values())
+        worst = max([worst] + [abs(m1[k] - m0[k]) / abs(m0[k]) for k in m0]
+                    + [float((g1[n] - g0[n]).abs().max()) / scale for n in g0])
+    return worst
+
+
+def phase_parallel(records, card):
+    """Phase 16: data, utilities and the parallel layer (see the module's
+    docstring)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from ccvs_tpu_torch.models import FrameAutoencoder
+    from ccvs_tpu_torch.ops.vq import vq_indices
+    from ccvs_tpu_torch.parallel.fsdp import local_fraction
+    from ccvs_tpu_torch.parallel.mesh import _free_port, init_distributed, make_mesh
+    from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, cycle_loader, to_device
+    from ccvs_tpu_torch.train.dryrun import run_tiny_multichip_step
+    from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
+
+    work = tempfile.mkdtemp(prefix="phase16_")
+    t_a = time.perf_counter()
+    cfg, loader = phase_data_tools(card, os.path.join(work, "bairhd"))
+    log(f"phase 16 (a): {time.perf_counter() - t_a:.1f} s")
+
+    # (b) the process group of one process on the card, as torchrun gives it
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+    dev = init_distributed()
+    mesh = make_mesh(1)
+    log(f"parallel: process group {dist.get_backend()} of {dist.get_world_size()} on {dev}, "
+        f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    try:
+        t_ae = time.perf_counter()
+        base = cfg.replace(name="phase16_ae", data=dataclasses.replace(
+            cfg.data, dataset="synthetic", batch_size_img=24, batch_size_vid=4))
+        (bi, bv), = _ae_batches(base, 1)
+        img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
+        atr = FrameAutoencoderTrainer(base, mesh=mesh)
+        atr.init_params()
+        astate = atr.init_state()
+        live = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        astate, *_ = atr.iteration(astate, 1, img, vid)
+        secs = {}
+        vq_indices.launches = 0
+        for it_n in (2, 16):  # 16: R1 (d_reg_every 16)
+            t0 = time.perf_counter()
+            astate, gm, dm, _ = atr.iteration(astate, it_n, img, vid)
+            float(gm["g_loss"])
+            secs[it_n] = _synced_since(t0)
+        launches = vq_indices.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != 4 or "r1_img" not in gm:
+            raise AssertionError(f"parallel ae: K1 {launches} in 2 iterations (expected 4), "
+                                 f"metrics {sorted(gm)}")
+        bad = [k for k, v in {**gm, **dm}.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"parallel ae: non-finite {bad}")
+        records["vq_argmin"]["launches_by_rollout"]["phase16_ae (2 iterations)"] = launches
+        rp, rr, rpk = TRAIN_REF.get("ae", (float("nan"),) * 3)
+        log(f"parallel ae: a DP iteration at 24 images and 4 clips {secs[2]:.4f} s, with R1 "
+            f"{secs[16]:.4f} s (phase 11 (b): {rp:.4f} / {rr:.4f} s); peak {peak:.2f} GiB "
+            f"(phase 11 (b): {rpk:.2f}; {live:.2f} GiB allocated before the iterations); K1 "
+            f"{launches} launches; on {card}")
+        del atr, astate, img, vid
+        _release()
+        log(f"phase 16 (b), autoencoder: {time.perf_counter() - t_ae:.1f} s")
+
+        t_b = time.perf_counter()
+        torch.cuda.empty_cache()
+        it = iter(cycle_loader(loader))
+        t0 = time.perf_counter()
+        batches = [to_device(next(it), "cuda") for _ in range(PHASE16_TIMED + 1)]
+        t_feed = (time.perf_counter() - t0) / len(batches)
+        ae = FrameAutoencoder(cfg.ae, dtype=torch.bfloat16).init(seed=0)
+
+        def fresh(c, m):
+            tr = TransformerTrainer(c, ae, mesh=m)
+            tr.transformer.init(seed=1)
+            return tr, tr.init_state()
+
+        tr, state = fresh(cfg, None)
+        state, m = tr.step(state, tr.encode_batch(batches[0]))
+        ref = {k: float(m[k]) for k in ("nll", "gnorm")}
+        del tr, state, m
+        _release()
+        ref_s, ref_peak = TRAIN_REF.get("transformer", (float("nan"), float("nan")))
+        for name, c in (("dp", cfg),
+                        ("fsdp", cfg.replace(gpt=dataclasses.replace(cfg.gpt, fsdp=True)))):
+            tr, state = fresh(c, mesh)
+            live = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            state, m = tr.step(state, tr.encode_batch(batches[0]))
+            first = {k: float(m[k]) for k in ("nll", "gnorm")}
+            rel = {k: abs(first[k] - ref[k]) / abs(ref[k]) for k in ref}
+            # bf16 compute: the same operations on the same state, the
+            # gradient all-reduce aside (phase 10 (a)'s relative 1e-4 is for
+            # fp32; allow 1e-3 for bf16 atomics)
+            if max(rel.values()) > 1e-3:
+                raise AssertionError(f"parallel {name}: first step {first} against the "
+                                     f"unwrapped step's {ref}")
+            vq_indices.launches = 0
+            t0 = time.perf_counter()
+            for b in batches[1:]:
+                state, m = tr.step(state, tr.encode_batch(b))
+                nll = float(m["nll"])
+            dt = _synced_since(t0) / PHASE16_TIMED
+            launches = vq_indices.launches
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if launches != PHASE16_TIMED:
+                raise AssertionError(f"parallel {name}: K1 launched {launches} times in "
+                                     f"{PHASE16_TIMED} steps, expected {PHASE16_TIMED}")
+            records["vq_argmin"]["launches_by_rollout"][
+                f"phase16_{name} ({PHASE16_TIMED} steps)"] = launches
+            extra = ""
+            if name == "fsdp":
+                params = list(tr.transformer.parameters())
+                if not all(isinstance(p, DTensor) and p.placements[0].is_shard() for p in params):
+                    raise AssertionError("parallel fsdp: a parameter is not split over data")
+                extra = (f"; every parameter a DTensor split on dim 0 over a data axis of 1 "
+                         f"(local share {local_fraction(params[0]):.2f})")
+            log(f"parallel {name}: full-width BAIR-256 transformer step fed by the prepared "
+                f"set, {dt:.4f} s a step over {PHASE16_TIMED} ({dt / ref_s:.3f}x phase 10 (b)'s "
+                f"{ref_s:.4f} s), peak {peak:.2f} GiB (phase 10 (b): {ref_peak:.2f}; "
+                f"{live:.2f} GiB allocated before the steps); first "
+                f"step nll {first['nll']:.5f} / gnorm {first['gnorm']:.5f} against the "
+                f"unwrapped step's {ref['nll']:.5f} / {ref['gnorm']:.5f} (relative "
+                f"{rel['nll']:.2e} / {rel['gnorm']:.2e}); last nll {nll:.4f}; K1 {launches} "
+                f"launches{extra}; {t_feed:.3f} s a batch from the loader to the card; on {card}")
+            if name == "dp":
+                state = phase_parallel_utilities(tr, state, batches, work, card)
+            del tr, state, m
+            _release()
+        del batches
+        _release()
+        worst = _small_parallel_parity(mesh)
+        if not worst <= 1e-6:
+            raise AssertionError(f"parallel: the small fp32 step through DP / FSDP differs from "
+                                 f"the unwrapped one by {worst:.3g} of the largest entry")
+        log(f"parallel: small fp32 configuration, one step unwrapped / DP / FSDP on the card: "
+            f"nll, gnorm and every gradient within {worst:.3g} of the largest entry "
+            f"(tolerance 1e-6)")
+        log(f"phase 16 (b), transformer: {time.perf_counter() - t_b:.1f} s")
+
+        # (c) the dry run at world 1, then two gloo processes on the card
+        t_c = time.perf_counter()
+        line = run_tiny_multichip_step(mesh)
+        log(f"parallel: {line}")
+        ranks, (nll1, gn1, p1) = gloo_on_one_card()
+        errors = [r["error"] for r in ranks if isinstance(r, dict) and "error" in r]
+        if errors:
+            raise AssertionError("parallel: two gloo processes on the card failed: "
+                                 + " | ".join(errors))
+        worst = 0.0
+        for nll2, gn2, p2 in ranks:
+            scale = max(float(v.abs().max()) for v in p1.values())
+            worst = max([worst, abs(nll2 - nll1) / abs(nll1), abs(gn2 - gn1) / abs(gn1)]
+                        + [float((p2[k] - p1[k]).abs().max()) / scale for k in p1])
+        if not worst <= 1e-5:
+            raise AssertionError(f"parallel: gloo DP-2 on the card differs from one process by "
+                                 f"{worst:.3g}")
+        log(f"parallel: 2 processes on the one card over gloo (CUDA tensors in the "
+            f"collectives), the tiny DP step of 2 x 2 rows against one process on 4: nll, gnorm "
+            f"and parameters within {worst:.3g} (tolerance 1e-5); {time.perf_counter() - t_c:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_utilities(tr, state, batches, work, card):
+    """(d) On the DP trainer: ``trace()`` around three steps (the largest
+    kernels, K1's among the trace's), an async save of the whole GPT state
+    while the next step runs (that step's seconds beside one without a save
+    in flight; the loaded state bit-equal to the saved one), and
+    ``sync_triggered`` at world 1. Returns the state."""
+    import torch
+    from torch.autograd import DeviceType
+    from ccvs_tpu_torch.utils import profiling
+    from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
+    from ccvs_tpu_torch.utils.preemption import PreemptionGuard
+
+    tdir = os.path.join(work, "trace")
+    with profiling.trace(tdir, "three_steps") as prof:
+        for i, b in enumerate(batches[1:4]):
+            with profiling.step_annotation("train", i):
+                state, m = tr.step(state, tr.encode_batch(b))
+    by_name, count = {}, {}
+    for e in prof.events():
+        # the step annotations appear on the device's timeline too
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("train#"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    size = os.path.getsize(os.path.join(tdir, "three_steps.json"))
+    # K1's three kernels (vq.cu's anonymous namespace prefixes their names)
+    k1 = [(i, n, t) for i, (n, t) in enumerate(top) if "vq_" in n]
+    if not top:
+        raise AssertionError("utilities: the trace of three steps holds no device kernel")
+    if len(k1) != 3 or any(count[n] != 3 for _, n, _ in k1):
+        raise AssertionError(f"utilities: K1's kernels in the trace of three steps: "
+                             f"{[(n[:60], count[n]) for _, n, _ in k1]}, expected 3 of 3 launches")
+    log(f"utilities: trace() of 3 steps -> a Chrome trace of {size / 2**20:.1f} MiB; device "
+        f"time {sum(by_name.values()):.1f} ms; largest kernels:")
+    for n, t in top[:8]:
+        log(f"    {t:9.2f} ms  {count[n]:5d}x  {n[:100]}")
+    log("    K1: " + ", ".join(f"{n} {t:.3f} ms ({count[n]}x, rank {i + 1} of {len(top)})"
+                             for i, n, t in k1))
+
+    sd = state.state_dict()
+    snap = _device_clone(sd)  # what the save must write, kept on the card
+    ckpt = CheckpointManager(os.path.join(work, "ckpt"), async_save=True)
+
+    def step_s(b):
+        t0 = time.perf_counter()
+        s, m = tr.step(state, tr.encode_batch(b))
+        float(m["nll"])
+        return s, _synced_since(t0)
+
+    t0 = time.perf_counter()
+    ckpt.save("transformer", 1, sd, latest=True)
+    t_copy = time.perf_counter() - t0
+    state, t_overlap = step_s(batches[0])
+    t0 = time.perf_counter()
+    ckpt.wait()
+    t_wait = time.perf_counter() - t0
+    state, t_plain = step_s(batches[1])
+    t0 = time.perf_counter()
+    loaded = ckpt.load("transformer", "latest")
+    t_load = time.perf_counter() - t0
+
+    def equal(a, b):
+        if torch.is_tensor(a):
+            return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+        if isinstance(a, dict):
+            return isinstance(b, dict) and a.keys() == b.keys() and all(equal(a[k], b[k])
+                                                                       for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        return a == b
+
+    if not equal(snap, loaded):
+        raise AssertionError("utilities: the loaded checkpoint is not the saved state")
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(snap))
+    log(f"utilities: async save of the full GPT state ({n_bytes / 2**30:.2f} GiB: parameters "
+        f"and AdamW moments): the copy to the host inside save {t_copy:.3f} s; the next step "
+        f"with the write in flight {t_overlap:.4f} s against {t_plain:.4f} s without "
+        f"({t_overlap / t_plain:.3f}x); the join after it {t_wait:.3f} s; the load "
+        f"{t_load:.3f} s, every tensor bit-equal to the saved state; on {card}")
+    guard = PreemptionGuard()
+    before = guard.sync_triggered()
+    guard.trigger()
+    log(f"utilities: sync_triggered at world 1: {before} before a trigger, "
+        f"{guard.sync_triggered()} after (no collective at one process)")
+    del snap, loaded
+    return state
+
+
+def _release():
+    """Free what the objects just deleted held on the card (FSDP's hooks
+    keep reference cycles that only the garbage collector breaks)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _device_clone(tree):
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _device_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_device_clone(v) for v in tree)
+    return tree
+
+
+def _tensors(tree):
+    import torch
+
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def main():
     import torch
 
@@ -4614,6 +5170,8 @@ def main():
         phase_gpt_variants(records, card)
     with phase("15 autoencoder options"):
         phase_ae_options(records, card)
+    with phase("16 data, utilities and the parallel layer"):
+        phase_parallel(records, card)
     log(json.dumps({"kernels": list(records.values())}))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4637,6 +5195,19 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["conditioning"]:
         # python3 chip_smoke.py conditioning [SEED]: see conditioning
         conditioning(int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    elif sys.argv[1:2] == ["phase16"]:
+        # python3 chip_smoke.py phase16: phases 0, 1 and 16 alone (no kernels
+        # record; phases 10 (b) and 11 (b), which it is set beside, not run)
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        with phase("1 build"):
+            from ccvs_tpu_torch.ops import native
+
+            native.build(force=True)
+        with phase("16 data, utilities and the parallel layer"):
+            phase_parallel({"vq_argmin": {"launches_by_rollout": {}}}, card_line())
     elif sys.argv[1:2] == ["ae-seeds"]:
         # python3 chip_smoke.py ae-seeds [--setting NAME] SEED...: see ae_seeds
         args = sys.argv[2:]
