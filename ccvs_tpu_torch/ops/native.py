@@ -32,8 +32,8 @@ SIGNATURES = {
     # q, k, v, pos_dev, pos_host, out, bh, len, hd, scale, dtype, stream
     "ccvs_flash_decode": (_p, _p, _p, _p, _i, _p, _i, _i, _i, _f, _i, _p),
     "ccvs_flash_decode_head_dim": (),
-    # x, x_dtype, w8, w_scale, bias, bias_dtype, out, rows, in, n_out, stream
-    "ccvs_int8_linear": (_p, _i, _p, _p, _p, _i, _p, _i, _i, _i, _p),
+    # weights (struct K3Weights *), x, x_dtype, out, out_seg_stride, rows, stream
+    "ccvs_int8_linear": (_p, _p, _i, _p, ctypes.c_longlong, _i, _p),
     "ccvs_int8_linear_max_rows": (),
     "ccvs_error_string": (_i,),
 }

@@ -15,7 +15,8 @@ Phases, each printing its wall time:
    and 1151, of 1280 at 0, 1151 and 1279, each also captured once in a CUDA
    graph and replayed at those positions; K2 at beam search's batch of 8
    after a cache reorder, also replayed; K3 bit-equal to the CPU's at the
-   int8 decode step's products), then timed (CUDA events, L2 flushed,
+   int8 decode step's products at B 2, q/k/v as one launch at B 2, 8 and
+   16, fc1 and fc2 at B 8 and 16), then timed (CUDA events, L2 flushed,
    median; K1 at the encode shapes of the rollouts, one re-encoded frame's,
    the state quantizer's and the drums audio quantizer's (depth 16), the
    training steps' (phases 10 and 11), K2 at
@@ -24,7 +25,9 @@ Phases, each printing its wall time:
    its plain version, a PyTorch library call that the port never makes
    (K3: ``torch._int_mm`` alone and the bf16 step's ``F.linear``), and its
    bound (K1's against both the fp32 CUDA cores and its own three TF32
-   tensor-core products);
+   tensor-core products); K3 also one decode step's 97 launches back to
+   back against the bf16 step's 145 ``F.linear`` (one layer and the head
+   first checked at the rollout's dtypes), and the host's µs a call;
 3. rollout: ``VideoGenerator.generate`` on the full-width BAIR-256 config in
    bf16 from a seeded init, batch 2, 16 frames, 1 context frame: one warm-up
    (its stages timed one by one) and one timed run, with every kernel's
@@ -47,7 +50,8 @@ Phases, each printing its wall time:
    as in phase 3 and its output checked (states in [0, 1] and the context
    frame's state tokens kept; the real end frame last, the end frame's
    prefix and delta moving the first frame's tokens and its features the
-   decode; int8 logits of one decode step within 8 % of the bf16 step's);
+   decode; int8: K3 97 launches a decode step, its ms a step beside phase
+   3's, int8 logits of one decode step within 8 % of the bf16 step's);
 8. drums: the full-width audio-conditioned drums rollout (128x128, 24 of
    the preset's 45 frames from 15, a seeded spectrogram's audio tokens
    given, the window slides 8 times: 576 decode steps), the audio tokens given back
@@ -537,15 +541,251 @@ def phase_beam_attention(g, pos_t, shapes):
     return worst
 
 
-def phase_int8_linear(records):
-    """K3 (the int8 decode step's product with its activation quantization,
-    scaling and bias) bit-equal to its plain version on the CPU, and timed at
-    the BAIR decode step's shapes, B = 2, beside its plain version on the
-    card (the ``torch._int_mm`` route), ``torch._int_mm`` alone on
-    pre-quantized operands and the bf16 step's ``F.linear``."""
+K3_SHAPES = {"q/k/v": (1024, 1024), "proj": (1024, 1024), "fc1": (1024, 4096),
+             "fc2": (4096, 1024), "head": (1024, 1024)}  # the BAIR-256 step's (in, out)
+K3_LAYERS = 24  # the BAIR-256 GPT's
+
+
+def k3_product(g, rows, product, segments=1, dtype=None, with_bias=True, bias_dtype=None):
+    """x and one K3 launch (an ``Int8Linear``) at one of the BAIR-256 decode
+    step's products, seeded, on the card; x has exact halves after scaling.
+    The biases are in x's dtype unless ``bias_dtype`` is given."""
+    import torch
+    from ccvs_tpu_torch.ops.int8_linear import Int8Linear
+
+    inner, out = K3_SHAPES[product]
+    dtype = dtype or torch.float32
+    x = torch.randn(rows, inner, device="cuda", generator=g).to(dtype)
+    x[min(1, rows - 1), :3] = torch.tensor([127.0, 0.5, -2.5])
+    w8s = [torch.randint(-127, 128, (out, inner), device="cuda", generator=g, dtype=torch.int8)
+           for _ in range(segments)]
+    scales = [torch.rand(out, device="cuda", generator=g) * 1e-3 + 1e-4 for _ in range(segments)]
+    biases = [torch.randn(out, device="cuda", generator=g).to(bias_dtype or dtype)
+              if with_bias else None for _ in range(segments)]
+    return x, Int8Linear(w8s, scales, biases)
+
+
+def k3_check(x, lin, what):
+    """K3 on the card bit-equal to the plain version on the CPU, weight by
+    weight."""
+    import torch
+    from ccvs_tpu_torch.ops.int8_linear import int8_linear_plain
+
+    got = lin(x).cpu().reshape(len(lin.w8s), x.shape[0], -1)
+    for i, (w8, scale, bias) in enumerate(zip(lin.w8s, lin.scales, lin.biases)):
+        want = int8_linear_plain(x.cpu(), w8.cpu(), scale.cpu(),
+                                 None if bias is None else bias.cpu())
+        if not torch.equal(got[i], want):
+            raise AssertionError(f"K3 {what}, weight {i}: differs from the CPU's plain version "
+                                 f"by {float((got[i] - want).abs().max())}")
+
+
+def k3_times(g, x, lin):
+    """K3's time (L2 flushed) beside its bytes bound, its plain version on
+    the card, ``torch._int_mm`` alone on int8 operands of the same shape and
+    bf16 ``F.linear`` (the weights stacked into one call where K3 takes
+    several)."""
     import torch
     import torch.nn.functional as F
-    from ccvs_tpu_torch.ops.int8_linear import div127, int8_linear, int8_linear_plain, int8_matmul
+    from ccvs_tpu_torch.ops.int8_linear import int8_matmul
+
+    rows, inner = x.shape
+    n, out = len(lin.w8s), lin.out_features
+    ms = time_ms(lambda: lin(x))
+    plain = time_ms(lambda: lin.plain(x))
+    x8 = torch.randint(-127, 128, (rows, inner), device="cuda", generator=g, dtype=torch.int8)
+    w_all = torch.cat(lin.w8s)
+    int_mm = time_ms(lambda: int8_matmul(x8, w_all))
+    wb = (torch.randn(n * out, inner, device="cuda", generator=g) * 0.02).bfloat16()
+    xb = x.bfloat16()
+    bb = None if lin.biases[0] is None else torch.cat(lin.biases).bfloat16()
+    lin_ms = time_ms(lambda: F.linear(xb, wb, bb))
+    n_bytes = (x.element_size() * x.numel() + n * (out * inner + 4 * out + 4 * rows * out)
+               + sum(b.element_size() * out for b in lin.biases if b is not None))
+    bnd, by = bound_ms(n_bytes, 2 * rows * inner * out * n, PEAK_INT8_PER_S)
+    return {"ms": ms, "plain_ms": plain, "int_mm_ms": int_mm, "bf16_linear_ms": lin_ms,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def events_ms(fn, iters=5):
+    """The median of ``iters`` runs of ``fn`` (after one more), each under
+    one event pair after a device sleep long enough for the host to queue
+    all of ``fn``'s launches: their device time back to back."""
+    import torch
+
+    times = []
+    for _ in range(iters + 1):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms: the host queues every launch meanwhile
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def k3_step_back_to_back(g, rows, iters=5, trace=False):
+    """One BAIR-256 decode step's products back to back, as the rollout
+    launches them: K3 over 24 layers' distinct weights (q/k/v fused, proj,
+    fc1, fc2; and the head: 97 launches, 289 MB of int8, past the 50 MB L2)
+    and the bf16 step's 145 ``F.linear`` (578 MB), each timed by
+    :func:`events_ms`. The first layer's products and the head are first
+    held bit-equal to the CPU at the rollout's dtypes (fp32 x, bf16 x into
+    proj; the bf16 model's biases). With ``trace``, also the kernels' own
+    device time (profiler). Returns (K3 ms a launch, bf16 ms a launch, K3 ms
+    the step's products, bf16 ms the step's products)."""
+    import torch
+    import torch.nn.functional as F
+
+    calls, lins = [], []
+    inputs = {"h": torch.randn(rows, 1024, device="cuda", generator=g),
+              "y": torch.randn(rows, 1024, device="cuda", generator=g).bfloat16(),
+              "h4": torch.randn(rows, 4096, device="cuda", generator=g)}
+    for _ in range(K3_LAYERS):
+        for product, segments, xin in (("q/k/v", 3, "h"), ("proj", 1, "y"), ("fc1", 1, "h"),
+                                       ("fc2", 1, "h4")):
+            # the bf16 model's biases, as in the rollout
+            _, lin = k3_product(g, 1, product, segments,
+                                torch.bfloat16 if xin == "y" else torch.float32,
+                                bias_dtype=torch.bfloat16)
+            calls.append((lin, inputs[xin]))
+    _, head = k3_product(g, 1, "head", with_bias=False)
+    calls.append((head, inputs["h"]))
+    for (lin, x), what in zip(calls[:4] + calls[-1:], ("q/k/v", "proj", "fc1", "fc2", "head")):
+        k3_check(x, lin, f"{what} B {rows} at the rollout's dtypes")
+    xb = inputs["h"].bfloat16()
+    xb4 = inputs["h4"].bfloat16()
+    for lin, x in calls:
+        wb = (torch.randn(len(lin.w8s) * lin.out_features, lin.in_features, device="cuda",
+                          generator=g) * 0.02).bfloat16()
+        for w in wb.split(lin.out_features):
+            lins.append((w.contiguous(), None if lin.biases[0] is None else
+                         torch.randn(lin.out_features, device="cuda", generator=g).bfloat16(),
+                         xb4 if lin.in_features == 4096 else xb))
+        del wb
+
+    run_k3 = lambda: [lin(x) for lin, x in calls]  # noqa: E731
+    run_bf16 = lambda: [F.linear(x, w, b) for w, b, x in lins]  # noqa: E731
+    k3, bf16 = events_ms(run_k3, iters), events_ms(run_bf16, iters)
+    # the kernels' own device time, without the gaps between them (profiler)
+    for what, fn in (("K3", run_k3), ("bf16 F.linear", run_bf16)) if trace else ():
+        _, busy, by_name, count = device_profile(fn)
+        top = ", ".join(f"{name[:60]} {1e6 * t / count[name]:.2f} µs x {count[name]}"
+                        for name, t in by_name[:3])
+        log(f"  {what} B {rows} traced: {1e3 * busy:.4f} ms in kernels; {top}")
+    return k3 / len(calls), bf16 / len(lins), k3, bf16
+
+
+def host_us(fn, n=1000):
+    """The host's µs a call over ``n`` calls, synchronised once at the end."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def k3_ab():
+    """``python3 chip_smoke.py k3-ab``: K3 one weight a call, its arguments
+    checked at each (as every tree of the port since K3 can call it), at the
+    BAIR-256 decode step's products at B 2, 8 and 16 (L2 flushed), one decode
+    step's 145 products back to back on 24 layers' weights at B 2, the
+    host's µs a call (fc1, B 2), and the int8 and bf16 BAIR-256 rollouts at
+    ``MODE_LEN`` frames (ms a decode step all in, median of 3 after one
+    warm-up). Prints one ``k3-ab:`` JSON line. Copied into the root of an
+    earlier tree and run there, it measures that tree's K3 and rollouts on
+    the same card."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.config import bairhd_config
+    from ccvs_tpu_torch.ops import int8_linear as k3_module
+
+    if hasattr(k3_module, "Int8Linear"):
+        def k3(x, w8, scale, bias):
+            return k3_module.Int8Linear([w8], [scale], [bias])(x)
+    else:  # the trees before Int8Linear
+        k3 = k3_module.int8_linear
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def weights(product, dtype=torch.float32):
+        inner, out = K3_SHAPES[product]
+        return (torch.randint(-127, 128, (out, inner), device="cuda", generator=g,
+                              dtype=torch.int8),
+                torch.rand(out, device="cuda", generator=g) * 1e-3 + 1e-4,
+                torch.randn(out, device="cuda", generator=g).to(dtype))
+
+    res = {"card": card_line(), "products": {}}
+    for product in K3_SHAPES:
+        for rows in (2, 8, 16):
+            w8, scale, bias = weights(product)
+            x = torch.randn(rows, w8.shape[1], device="cuda", generator=g)
+            if not torch.equal(k3(x, w8, scale, bias).cpu(), k3_module.int8_linear_plain(
+                    x.cpu(), w8.cpu(), scale.cpu(), bias.cpu())):
+                raise AssertionError(f"k3-ab: {product} B {rows} differs from the plain version")
+            res["products"][f"{product} B {rows}"] = time_ms(lambda: k3(x, w8, scale, bias))
+    calls = []
+    h, h4 = (torch.randn(2, n, device="cuda", generator=g) for n in (1024, 4096))
+    y = torch.randn(2, 1024, device="cuda", generator=g).bfloat16()
+    for _ in range(K3_LAYERS):
+        for product, x in (("q/k/v", h), ("q/k/v", h), ("q/k/v", h), ("proj", y), ("fc1", h),
+                           ("fc2", h4)):
+            calls.append((x, *weights(product, torch.bfloat16)))
+    w8, scale, _ = weights("head")
+    calls.append((h, w8, scale, None))
+    res["step_145_ms"] = events_ms(lambda: [k3(*call) for call in calls])
+    res["step_ms_a_launch"] = res["step_145_ms"] / len(calls)
+    w8, scale, bias = weights("fc1")
+    x = torch.randn(2, 1024, device="cuda", generator=g)
+    res["host_us"] = host_us(lambda: k3(x, w8, scale, bias))
+    wb, xb, bb = w8.bfloat16(), x.bfloat16(), bias.bfloat16()
+    res["bf16_linear_host_us"] = host_us(lambda: F.linear(xb, wb, bb))
+    del calls
+    torch.cuda.empty_cache()
+    base = bairhd_config()
+    steps = (MODE_LEN - 1) * base.gpt.size
+    res["rollout_ms_a_step"] = {}
+    for cfg in (dataclasses.replace(base, name="bairhd_int8",
+                                    gpt=dataclasses.replace(base.gpt, serve_int8=True)), base):
+        _, _, gen = build_models(cfg)
+        vid = clip(cfg, MODE_LEN)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.generate(vid, torch.Generator(device="cuda").manual_seed(4), rec=False,
+                         n_ctx_frames=1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["rollout_ms_a_step"][cfg.name] = 1e3 * statistics.median(times[1:]) / steps
+        del gen
+        torch.cuda.empty_cache()
+    ms = res["rollout_ms_a_step"]
+    res["int8_over_bf16"] = ms["bairhd_int8"] / ms[base.name]
+    log("k3-ab: " + json.dumps(res))
+
+
+def phase_int8_linear(records):
+    """K3 (the int8 decode step's products with their activation
+    quantization, scaling and bias) bit-equal to its plain version on the
+    CPU and timed at the BAIR-256 decode step's shapes: the five products at
+    B 2, q/k/v as one launch at B 2, 8 and 16, fc1 and fc2 at B 8 and 16;
+    each beside its bytes bound, its plain version on the card (the
+    ``torch._int_mm`` route), ``torch._int_mm`` alone and bf16 ``F.linear``.
+    Then one decode step's products back to back on 24 layers' weights (K3
+    against bf16 ``F.linear``, B 2 and 16; one layer and the head checked at
+    the rollout's dtypes), and the host's µs a call."""
+    import torch
+    import torch.nn.functional as F
+    from ccvs_tpu_torch.ops.int8_linear import Int8Linear, div127
 
     g = torch.Generator(device="cuda").manual_seed(6)
     # on the card a division by a Python number is a multiplication by the
@@ -555,47 +795,77 @@ def phase_int8_linear(records):
     log(f"int8 scales: a / 127.0 on the card differs from a / 127 rounded once in {off} of "
         f"{a.numel()} fp32 values in [0, 4)")
     shapes = []
-    for name, inner, out, dtype in (("q/k/v", 1024, 1024, torch.float32),
-                                    ("proj", 1024, 1024, torch.bfloat16),
-                                    ("fc1", 1024, 4096, torch.float32),
-                                    ("fc2", 4096, 1024, torch.float32),
-                                    ("head", 1024, 1024, torch.float32)):
-        x = torch.randn(BATCH, inner, device="cuda", generator=g).to(dtype)
-        x[1, :3] = torch.tensor([127.0, 0.5, -2.5])  # exact halves after scaling
-        w8 = torch.randint(-127, 128, (out, inner), device="cuda", generator=g, dtype=torch.int8)
-        scale = torch.rand(out, device="cuda", generator=g) * 1e-3 + 1e-4
-        bias = None if name == "head" else torch.randn(out, device="cuda", generator=g).to(dtype)
-        got = int8_linear(x, w8, scale, bias)
-        want = int8_linear_plain(x.cpu(), w8.cpu(), scale.cpu(),
-                                 None if bias is None else bias.cpu())
-        if not torch.equal(got.cpu(), want):
-            raise AssertionError(f"int8_linear {name}: differs from the CPU's plain version by "
-                                 f"{float((got.cpu() - want).abs().max())}")
-        ms = time_ms(lambda: int8_linear(x, w8, scale, bias))
-        plain = time_ms(lambda: int8_linear_plain(x, w8, scale, bias))
-        x8 = torch.randint(-127, 128, (BATCH, inner), device="cuda", generator=g,
-                           dtype=torch.int8)
-        int_mm = time_ms(lambda: int8_matmul(x8, w8))
-        wb = (torch.randn(out, inner, device="cuda", generator=g) * 0.02).bfloat16()
-        xb, bb = x.bfloat16(), None if bias is None else bias.bfloat16()
-        lin = time_ms(lambda: F.linear(xb, wb, bb))
-        n_bytes = (x.element_size() * BATCH * inner + out * inner + 4 * out
-                   + (0 if bias is None else bias.element_size() * out) + 4 * BATCH * out)
-        bnd, by = bound_ms(n_bytes, 2 * BATCH * inner * out, PEAK_INT8_PER_S)
-        log(f"K3 int8_linear {name} x ({BATCH}, {inner}) {str(dtype)[6:]} x w8 ({out}, {inner}): "
-            f"bit-equal to the CPU; kernel {ms:.4f} ms, plain (_int_mm route) {plain:.4f} ms, "
-            f"_int_mm alone {int_mm:.4f} ms, bf16 F.linear {lin:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}; {100 * bnd / ms:.1f}% of it)")
-        shapes.append({"shape": name, "in": inner, "out": out, "ms": ms, "plain_ms": plain,
-                       "int_mm_ms": int_mm, "bf16_linear_ms": lin, "bound_ms": bnd,
-                       "bound_by": by})
-    # the record's numbers are fc1's, the largest weight
-    fc1 = next(r for r in shapes if r["shape"] == "fc1")
+    cases = [("q/k/v", 2, 1, torch.float32), ("proj", 2, 1, torch.bfloat16),
+             ("fc1", 2, 1, torch.float32), ("fc2", 2, 1, torch.float32),
+             ("head", 2, 1, torch.float32), ("q/k/v", 2, 3, torch.float32),
+             ("q/k/v", 8, 3, torch.float32), ("q/k/v", 16, 3, torch.float32),
+             ("fc1", 8, 1, torch.float32), ("fc1", 16, 1, torch.float32),
+             ("fc2", 8, 1, torch.float32), ("fc2", 16, 1, torch.float32)]
+    for product, rows, segments, dtype in cases:
+        x, lin = k3_product(g, rows, product, segments, dtype, with_bias=product != "head")
+        name = f"{product}{' fused' if segments > 1 else ''} B {rows}"
+        k3_check(x, lin, name)
+        t = k3_times(g, x, lin)
+        inner, out = K3_SHAPES[product]
+        log(f"K3 int8_linear {name}: x ({rows}, {inner}) {str(dtype)[6:]} x {segments} w8 "
+            f"({out}, {inner}), bit-equal to the CPU; kernel {t['ms']:.4f} ms, plain (_int_mm "
+            f"route) {t['plain_ms']:.4f} ms, _int_mm alone {t['int_mm_ms']:.4f} ms, bf16 "
+            f"F.linear {t['bf16_linear_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
+        shapes.append({"shape": name, "in": inner, "out": out, "rows": rows,
+                       "segments": segments, **t})
+    step = {}
+    for rows in (2, 16):
+        k3, bf16, k3_all, bf16_all = k3_step_back_to_back(g, rows, trace=rows == 2)
+        step[rows] = {"k3_ms_a_launch": k3, "bf16_ms_a_launch": bf16,
+                      "k3_ms_a_step": k3_all, "bf16_ms_a_step": bf16_all}
+        log(f"K3 one decode step back to back, B {rows}: 97 launches {k3_all:.4f} ms = "
+            f"{k3:.5f} ms a launch; bf16 F.linear 145 launches {bf16_all:.4f} ms = "
+            f"{bf16:.5f} ms a launch")
+    torch.cuda.empty_cache()
+    x, fc1 = k3_product(g, 2, "fc1")
+    xq, qkv = k3_product(g, 2, "q/k/v", 3)
+    w8, scale, bias = fc1.w8s[0], fc1.scales[0], fc1.biases[0]
+    wb, xb, bb = w8.bfloat16(), x.bfloat16(), bias.bfloat16()
+    host = {"thin": host_us(lambda: fc1(x)), "qkv_thin": host_us(lambda: qkv(xq)),
+            "checked": host_us(lambda: Int8Linear([w8], [scale], [bias])(x)),
+            "bf16_linear": host_us(lambda: F.linear(xb, wb, bb))}
+    log(f"K3 host µs a call (1000 calls, one synchronize; fc1 B 2): the decode step's "
+        f"Int8Linear {host['thin']:.2f}, its fused q/k/v {host['qkv_thin']:.2f}, an Int8Linear "
+        f"built and checked at every call {host['checked']:.2f}; bf16 F.linear "
+        f"{host['bf16_linear']:.2f}")
+    # the record's numbers are fc1's at B 2, the largest weight of the rollout's
+    fc1_b2 = next(r for r in shapes if r["shape"] == "fc1 B 2")
     records["int8_linear"] = {
         "name": "int8_linear", "route": "cuda", "source": "ccvs_tpu_torch/csrc/int8_linear.cu",
         "replaces": "ccvs_tpu/nn/quantized.py:66", "launches": None, "max_abs_err": 0.0,
-        **{key: fc1[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None, "shapes": shapes, "launches_by_rollout": {}}
+        **{key: fc1_b2[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shapes": shapes, "step_back_to_back": step,
+        "host_us": host, "launches_by_rollout": {}}
+
+
+def phase_k3(card):
+    """Phase 2's K3 part, then the BAIR-256 int8 rollout (``serve_int8``)
+    and the bf16 one at ``MODE_LEN`` frames, launches counted as in phase 7."""
+    import dataclasses
+
+    from ccvs_tpu_torch.config import bairhd_config
+
+    records = {key: {"launches": None, "launches_by_rollout": {}}
+               for key in ("vq_argmin", "flash_decode")}
+    with phase("2 K3"):
+        phase_int8_linear(records)
+    base = bairhd_config()
+    steps = (MODE_LEN - 1) * base.gpt.size
+    for cfg in (dataclasses.replace(base, name="bairhd_int8",
+                                    gpt=dataclasses.replace(base.gpt, serve_int8=True)), base):
+        with phase(f"7 {cfg.name} at {MODE_LEN} frames"):
+            _, _, gen = build_models(cfg)
+            vid = clip(cfg, MODE_LEN)
+            run_path(records, card, cfg, gen, vid, 1, 2, steps, name=cfg.name + " warm-up")
+            _, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
+            log(f"{cfg.name}: {1e3 * dt / steps:.2f} ms a decode step all in")
+            del gen
 
 
 def build_models(cfg):
@@ -631,22 +901,22 @@ def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps, run=None, name=N
     in its place, on the card with every kernel's count set to 0 just before
     it and read just after: K1 must have launched ``k1`` times, K2 once a
     layer in each of ``k2_steps`` decode steps, and K3 (with ``serve_int8``)
-    once a dense product in each of them (6 a layer and the head), else
-    never. ``vid`` has the shape of the clip that comes out. The rollout is
+    once a product in each of them (q/k/v as one, proj, fc1, fc2 a layer,
+    and the head), else never. ``vid`` has the shape of the clip that comes out. The rollout is
     recorded as ``name`` (default ``cfg.name``). Returns the output and its
     wall time."""
     import torch
     from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.int8_linear import int8_linear
+    from ccvs_tpu_torch.ops.int8_linear import Int8Linear
     from ccvs_tpu_torch.ops.vq import vq_indices
 
     name = name or cfg.name
     vid_len = vid.shape[1]
     n_layer = cfg.gpt.n_layer
     want = {"vq_argmin": k1, "flash_decode": n_layer * k2_steps,
-            "int8_linear": (6 * n_layer + 1) * k2_steps if cfg.gpt.serve_int8 else 0}
+            "int8_linear": (4 * n_layer + 1) * k2_steps if cfg.gpt.serve_int8 else 0}
     wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
-                "int8_linear": int8_linear}
+                "int8_linear": Int8Linear}
     if run is None:
         def run(g):
             return gen.generate(vid, g, rec=False, n_ctx_frames=n_ctx, **kw)
@@ -845,7 +1115,13 @@ def phase_modes(records, card):
                               gpt=dataclasses.replace(base.gpt, serve_int8=True))
     ae, tr, gen = build_models(cfg)
     vid = clip(cfg, MODE_LEN)
-    out, _ = run_path(records, card, cfg, gen, vid, 1, 2, (MODE_LEN - 1) * size)
+    out, dt = run_path(records, card, cfg, gen, vid, 1, 2, (MODE_LEN - 1) * size)
+    int8_ms = 1e3 * dt / ((MODE_LEN - 1) * size)
+    bf16_ms = 1e3 * ROLLOUT_S["bairhd"] / ((VID_LEN - 1) * size) if "bairhd" in ROLLOUT_S else None
+    records["int8_linear"]["rollout_ms_a_step"] = {"int8": int8_ms, "bf16 (phase 3)": bf16_ms}
+    log(f"{cfg.name}: {int8_ms:.2f} ms a decode step all in (K3 {4 * cfg.gpt.n_layer + 1} "
+        f"launches a step); phase 3's bf16 rollout "
+        + ("not run" if bf16_ms is None else f"{bf16_ms:.2f} ms a step ({int8_ms / bf16_ms:.3f}x)"))
     # one decode step at the rollout's last position (255 tokens cached),
     # int8 against bf16
     model = tr.model
@@ -1124,24 +1400,26 @@ def int8_lockstep(models, code, n0):
 
     if not all(torch.equal(a.cpu(), b) for a, b in zip(leaves(qg), leaves(qc))):
         raise AssertionError("reference int8: w8 or scales differ between the card and the CPU")
-    dot = quantized._dot_int8
-    products, state = [], {"n": 0, "worst": 0.0}
+    dot = quantized._dot_int8_shared
+    products, state = [], {"n": 0, "card": 0, "worst": 0.0}
 
-    def on_card(x, qw, bias=None):
-        out = dot(x, qw, bias)
+    def on_card(x, product):
+        out = dot(x, product)
         products.append((x, out))
+        state["card"] += len(product.w8s)
         return out
 
-    def on_cpu(x, qw, bias=None):
+    def on_cpu(x, product):
         if not products:
             raise AssertionError("reference int8: the CPU made more products than the card")
         xg, og = (t.cpu() for t in products.pop(0))
-        if not torch.equal(og, dot(xg, qw, bias)):
+        want = dot(xg, product)
+        if not torch.equal(og, want):  # each weight of a shared-input launch
             raise AssertionError(f"reference int8: product {state['n']} on the card differs "
                                  "from the CPU's int8 product of the same input")
         ref = x.float()
         diff = (xg.float() - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)
-        state["n"] += 1
+        state["n"] += len(product.w8s)
         state["worst"] = max(state["worst"], float(diff.max()))
         return og
 
@@ -1164,17 +1442,17 @@ def int8_lockstep(models, code, n0):
                     break
                 tok = code[:, j]
                 pos = torch.full((1,), j, dtype=torch.int32, device=dev)
-                quantized._dot_int8 = on_card
+                quantized._dot_int8_shared = on_card
                 logits = quantized.decode_step_fn_int8(
                     gm, qg, gm.embed_one(tok, j % size, j // size)[:, None], pos, cache_g)
-                quantized._dot_int8 = on_cpu
+                quantized._dot_int8_shared = on_cpu
                 quantized.decode_step_fn_int8(
                     cm, qc, cm.embed_one(tok.cpu(), j % size, j // size)[:, None], j, cache_c)
-                quantized._dot_int8 = dot
-                if products:
+                quantized._dot_int8_shared = dot
+                if products or state["n"] != state["card"]:
                     raise AssertionError("reference int8: the devices made different products")
     finally:
-        quantized._dot_int8 = dot
+        quantized._dot_int8_shared = dot
     if not state["worst"] <= INT8_INPUT_TOL:
         raise AssertionError(f"reference int8: a product's input differs by {state['worst']} of "
                              f"its row's max between the card and the CPU (> {INT8_INPUT_TOL})")
@@ -2573,7 +2851,7 @@ def phase_generate_bairhd(records, card):
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.eval import fvd, metrics
     from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.int8_linear import int8_linear
+    from ccvs_tpu_torch.ops.int8_linear import Int8Linear
     from ccvs_tpu_torch.ops.vq import vq_indices
 
     cfg = bairhd_config()
@@ -2589,7 +2867,7 @@ def phase_generate_bairhd(records, card):
         log(f"generate bairhd set-up: {b} clips of {t} PNG frames at 256 px and seeded bf16 "
             f"checkpoints in {time.perf_counter() - t0:.1f} s")
         wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
-                    "int8_linear": int8_linear}
+                    "int8_linear": Int8Linear}
         # K1: the clips' encode and the context frame's re-encode in the fake
         # and the rec decode; K2: a launch a layer in each decode step
         want = {"vq_argmin": 3, "flash_decode": cfg.gpt.n_layer * (t - 1) * size,
@@ -5208,6 +5486,24 @@ if __name__ == "__main__":
             native.build(force=True)
         with phase("16 data, utilities and the parallel layer"):
             phase_parallel({"vq_argmin": {"launches_by_rollout": {}}}, card_line())
+    elif sys.argv[1:2] in (["k3"], ["k3-ab"]):
+        # python3 chip_smoke.py k3: phases 0, 1 and 2's K3 part, then the
+        # int8 and bf16 BAIR-256 rollouts at MODE_LEN frames; k3-ab: see k3_ab
+        import torch
+
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device")
+        log(f"card: {card_line()}")
+        from ccvs_tpu_torch.ops import native
+
+        with phase("1 build"):
+            for line in native.build(force=True).splitlines():
+                if "int8" in line or "registers" in line or "spill" in line:
+                    log("  " + line.strip())
+        if sys.argv[1] == "k3-ab":
+            k3_ab()
+        else:
+            phase_k3(card_line())
     elif sys.argv[1:2] == ["ae-seeds"]:
         # python3 chip_smoke.py ae-seeds [--setting NAME] SEED...: see ae_seeds
         args = sys.argv[2:]

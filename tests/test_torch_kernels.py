@@ -14,7 +14,7 @@ from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import ContinuousTransformer, FrameAutoencoder, TokenTransformer
 from ccvs_tpu_torch.nn.quantized import int8_matmul
 from ccvs_tpu_torch.ops.attention import flash_decode_attention, flash_decode_plain
-from ccvs_tpu_torch.ops.int8_linear import int8_linear, int8_linear_plain
+from ccvs_tpu_torch.ops.int8_linear import Int8Linear, int8_linear_plain
 from ccvs_tpu_torch.ops.vq import vq_indices, vq_indices_plain
 from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
 from ccvs_tpu_torch.train.steps import make_transformer_step
@@ -342,34 +342,117 @@ def test_int8_matmul_on_card_is_exact(cuda, rows, inner, out):
     assert int(want[0, 0]) == 127 * 127 * inner
 
 
+def _int8_input(rows, inner, g):
+    """x with exact halves after scaling (row 0, scale 1), a row of ones with
+    one half, and past two rows an all-zero row (scale 1e-8 / 127)."""
+    x = torch.randn(rows, inner, generator=g)
+    x[0, :4] = torch.tensor([127.0, 0.5, 2.5, -1.5])
+    x[0, 4:] = x[0, 4:].clamp(-1, 1)
+    if rows > 1:
+        x[1] = 1.0
+        x[1, 0] = 0.5
+    if rows > 2:
+        x[-1] = 0.0
+    return x
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,inner,out,dtype,with_bias", [
     (2, 1024, 1024, torch.float32, True), (2, 1024, 4096, torch.float32, True),
     (2, 4096, 1024, torch.float32, True), (2, 1024, 1024, torch.bfloat16, True),
-    (2, 1024, 16384, torch.float32, False), (11, 1024, 512, torch.float32, True)])
+    (2, 1024, 16384, torch.float32, False), (11, 1024, 512, torch.float32, True),
+    (1, 1024, 1024, torch.float32, True), (8, 1024, 4096, torch.float32, True),
+    (16, 1024, 4096, torch.float32, True), (16, 4096, 1024, torch.float32, True),
+    (16, 1024, 1024, torch.bfloat16, True), (17, 1024, 1024, torch.float32, True)])
 def test_int8_linear_kernel_matches_plain(cuda, rows, inner, out, dtype, with_bias):
     """K3 on the card bit-equal to its plain version on the CPU: the decode
     step's products (q/k/v/proj, fc1, fc2, the bf16 attention output into
-    proj, the head), exact halves in x, an odd sum past 2^24, and 11 rows
-    (two launches of at most 8)."""
+    proj, the head), exact halves in x, an odd sum past 2^24, an all-zero
+    row, 1, 8, 11 and 16 rows in one launch (fc2 at 16 rows holds 64 KB of
+    int8 x, past the 48 KB of static shared memory) and 17 in two."""
     g = torch.Generator().manual_seed(7)
-    x = torch.randn(rows, inner, generator=g)
-    x[0, :4] = torch.tensor([127.0, 0.5, 2.5, -1.5])
-    x[0, 4:] = x[0, 4:].clamp(-1, 1)
-    x[1] = 1.0
-    x[1, 0] = 0.5
-    x = x.to(dtype)
+    x = _int8_input(rows, inner, g).to(dtype)
     w8 = torch.randint(-127, 128, (out, inner), generator=g, dtype=torch.int8)
     w8[0] = 127
     scale = torch.rand(out, generator=g) * 1e-3 + 1e-4
     bias = torch.randn(out, generator=g).to(dtype) if with_bias else None
     want = int8_linear_plain(x, w8, scale, bias)
-    before = int8_linear.launches
-    got = int8_linear(x.to(cuda), w8.to(cuda), scale.to(cuda),
-                      None if bias is None else bias.to(cuda))
-    assert int8_linear.launches - before == -(-rows // 8)
+    lin = Int8Linear([w8.to(cuda)], [scale.to(cuda)], [None if bias is None else bias.to(cuda)])
+    before = Int8Linear.launches
+    got = lin(x.to(cuda))
+    assert Int8Linear.launches - before == -(-rows // 16)
     assert got.is_cuda and got.dtype == torch.float32 and got.shape == (rows, out)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,inner,dtype", [(2, 1024, torch.float32),
+                                              (16, 1024, torch.float32),
+                                              (8, 1024, torch.bfloat16),
+                                              (16, 1040, torch.float32),
+                                              (2, 1040, torch.bfloat16)])
+def test_int8_qkv_kernel_matches_three_plain_products(cuda, rows, inner, dtype):
+    """q, k and v as one K3 launch on the same x (one quantization, three
+    weights, scales, biases and outputs by pointer) bit-equal to three
+    separate plain products on the CPU, with x's quantization shared by a
+    cluster of 8 CTAs (width 1024) and of 4 (1040, an odd multiple of 16)."""
+    g = torch.Generator().manual_seed(8)
+    x = _int8_input(rows, inner, g).to(dtype)
+    w8s = [torch.randint(-127, 128, (1024, inner), generator=g, dtype=torch.int8)
+           for _ in range(3)]
+    scales = [torch.rand(1024, generator=g) * 1e-3 + 1e-4 for _ in range(3)]
+    biases = [torch.randn(1024, generator=g).to(dtype) for _ in range(3)]
+    qkv = Int8Linear([w.to(cuda) for w in w8s], [s.to(cuda) for s in scales],
+                     [b.to(cuda) for b in biases])
+    before = Int8Linear.launches
+    got = qkv(x.to(cuda))
+    assert Int8Linear.launches - before == 1
+    assert got.is_cuda and got.shape == (3, rows, 1024)
+    for i in range(3):
+        assert torch.equal(got[i].cpu(), int8_linear_plain(x, w8s[i], scales[i], biases[i]))
+
+
+@pytest.mark.gpu
+def test_int8_linear_refuses_what_the_kernel_does_not_take(cuda):
+    """A CUDA x reaches K3 or raises: a weight off the 16-column grid, x on
+    another device or of another width, a bad dtype; never the plain path."""
+    w8 = torch.zeros(64, 1024, dtype=torch.int8, device=cuda)
+    scale = torch.ones(64, device=cuda)
+    lin = Int8Linear([w8], [scale], [None])
+    for x in (torch.zeros(2, 512, device=cuda), torch.zeros(2, 1024, device=cuda).half(),
+              torch.zeros(2, 2048, device=cuda)[:, ::2]):
+        with pytest.raises(ValueError):
+            lin(x)
+    with pytest.raises(ValueError):
+        Int8Linear([w8[:, :1000].contiguous()], [scale], [None])
+    with pytest.raises(ValueError):
+        Int8Linear([w8.float()], [scale], [None])
+    cpu = Int8Linear([w8.cpu()], [scale.cpu()], [None])
+    with pytest.raises(ValueError):
+        cpu(torch.zeros(2, 1024, device=cuda))
+
+
+@pytest.mark.gpu
+def test_serve_int8_at_batch_16_launches_once_a_product(cuda):
+    """``serve_int8`` at batch 16: one K3 launch a product (q/k/v one, proj,
+    fc1, fc2 a layer, and the head) in each decode step, and greedy tokens
+    equal to the CPU's from the same weights."""
+    cfg = TransformerConfig(z_num=64, z_len=64, num_blocks=4, cond_len=16, n_layer=2, n_head=2,
+                            n_embd=128, z_shape=(4, 4), top_k=1, serve_int8=True)
+    code = torch.randint(0, 64, (16, 16), generator=torch.Generator().manual_seed(9))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        tr = TokenTransformer(cfg, dtype=torch.float32, device=dev).init(seed=1)
+        if dev == "cpu":
+            tr.load_state_dict(outs["cuda"][1])
+        Int8Linear.launches = flash_decode_attention.launches = 0
+        out = tr.generate(code.to(dev), torch.Generator(device=dev).manual_seed(0), total_len=48)
+        outs[dev] = (out, tr.state_dict(), Int8Linear.launches,
+                     flash_decode_attention.launches)
+    steps = outs["cuda"][3] // cfg.n_layer
+    assert steps == 32 and outs["cuda"][2] == (4 * cfg.n_layer + 1) * steps
+    assert outs["cpu"][2:] == (0, 0)
+    assert torch.equal(outs["cuda"][0]["code"].cpu(), outs["cpu"][0]["code"])
 
 
 @pytest.mark.gpu

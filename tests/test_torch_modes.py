@@ -332,13 +332,58 @@ def test_int8_linear_matches_ccvs_tpu_dot_int8(inner, out, with_bias):
     want = jq._dot_int8(jnp.asarray(x), jqw, None if bias is None else jnp.asarray(bias))
     qw = tq._quant_w(torch.from_numpy(w.T.copy()))
     np.testing.assert_array_equal(to_np(qw["w8"]).T, np.asarray(jqw["w8"]))
-    got = tq._dot_int8(torch.from_numpy(x), qw, None if bias is None else torch.from_numpy(bias))
+    got = tq._dot_int8_shared(torch.from_numpy(x),
+                              tq._product(qw, None if bias is None else torch.from_numpy(bias)))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(to_np(got), np.asarray(want))
     x8, _ = tq._quant_x(torch.from_numpy(x))
     assert x8[0, :4].tolist() == [127, 0, 2, -2]
     acc = int(tq.int8_matmul(x8, qw["w8"])[1, 0])
     assert acc == 127 * (127 * (inner - 1) + int(x8[1, 0])) and acc % 2
+
+
+@pytest.mark.parametrize("batch", [2, 8, 16])
+def test_int8_qkv_matches_ccvs_tpu_dot_int8(batch):
+    """q, k and v as one product on the same input (x quantized once, K3's
+    plain version) bit-equal to the JAX package's ``_dot_int8`` run eagerly
+    three times on that input: exact halves in x (rounded to even) and, past
+    two rows, an all-zero row (scale 1e-8 / 127)."""
+    rng = np.random.RandomState(15 + batch)
+    x = rng.normal(0, 1, (batch, 64)).astype(np.float32)
+    x[0, :4] = [127.0, 0.5, 2.5, -1.5]  # scale 1: x / s lands on halves
+    x[0, 4:] = np.clip(x[0, 4:], -1, 1)
+    x[1] = 1.0
+    x[1, 0] = 0.5
+    if batch > 2:
+        x[-1] = 0.0
+    ws = [rng.normal(0, 0.05, (64, 32)).astype(np.float32) for _ in range(3)]
+    biases = [rng.normal(0, 1, 32).astype(np.float32) for _ in range(3)]
+    want = [np.asarray(jq._dot_int8(jnp.asarray(x), jq._quant_w(jnp.asarray(w)),
+                                    jnp.asarray(b))) for w, b in zip(ws, biases)]
+    qws = [tq._quant_w(torch.from_numpy(w.T.copy())) for w in ws]
+    qkv = tq.Int8Linear([q["w8"] for q in qws], [q["scale"] for q in qws],
+                        [torch.from_numpy(b) for b in biases])
+    got = tq._dot_int8_shared(torch.from_numpy(x), qkv)
+    assert got.dtype == torch.float32 and got.shape == (3, batch, 32)
+    for ours, theirs in zip(got, want):
+        np.testing.assert_array_equal(to_np(ours), theirs)
+
+
+def test_decode_step_int8_launches_four_products_a_layer(gpts, monkeypatch):
+    """The int8 step makes 4 shared-input products a layer (q/k/v as one)
+    and the head's: 6 a layer in the JAX package."""
+    _, _, ttr = gpts["frame"]
+    model = ttr.model
+    calls = []
+    shared = tq._dot_int8_shared
+    monkeypatch.setattr(tq, "_dot_int8_shared", lambda x, p: calls.append(len(p.w8s)) or
+                        shared(x, p))
+    nl, d = model.cfg.n_layer, model.cfg.n_embd
+    cache = tuple([torch.zeros(2, model.cfg.n_head, 8, d // model.cfg.n_head)
+                   for _ in range(nl)] for _ in range(2))
+    with torch.no_grad():
+        tq.decode_step_fn_int8(model, tq.quantize_gpt_int8(model), torch.ones(2, 1, d), 0, cache)
+    assert calls == [3, 1, 1, 1] * nl + [1]
 
 
 def test_serve_int8_greedy_tokens_match_ccvs_tpu(gpts):
