@@ -17,7 +17,7 @@ import torch
 
 from ccvs_tpu_torch.ops.resize import resize_frames
 from ccvs_tpu_torch.parallel.mesh import draw_rows
-from ccvs_tpu_torch.utils import video_io
+from ccvs_tpu_torch.utils import profiling, video_io
 from ccvs_tpu_torch.train.transformer_trainer import blur_video
 
 
@@ -33,6 +33,7 @@ class VideoGenerator:
         self.stft_model = stft_model
 
     @torch.no_grad()
+    @profiling.spanned("generate", is_root=True)
     def generate(self, real_vid, generator, rec=True, fake=True, n_ctx_frames=None,
                  keep_state=False, custom_state=None, stft=None, vid_lbl=None, layout=None,
                  down_size=None):
@@ -190,6 +191,7 @@ class VideoGenerator:
         return out
 
     @torch.no_grad()
+    @profiling.spanned("generate", is_root=True)
     def generate_step_by_step(self, real_vid, generator, n_ctx_frames=None, fixed_shape=True):
         """Continue ``real_vid`` one frame at a time: the transformer makes a
         frame's tokens, the frame is decoded against the context FIFO, then
@@ -266,11 +268,13 @@ class VideoGenerator:
                 gen = tr.generate(code, generator, cond_code=cond_code, delta=delta,
                                   total_len=total)
                 chunk = gen["code"][:, -size:]
-            frame = ae.decode_frame(ae.embed_code(chunk), fifo, ae.fifo_mask(b, curr),
-                                    extra_ctx=cond_inter)
-            # re-encode: fresh context features and the frame's own tokens
-            new_enc = ae.encode(frame)
-            fifo = ae.fifo_push(fifo, new_enc["inter"], curr, cfg.ae.keep_first, cfg.ae.n_first)
+            with profiling.span("decode"):
+                frame = ae.decode_frame(ae.embed_code(chunk), fifo, ae.fifo_mask(b, curr),
+                                        extra_ctx=cond_inter)
+                # re-encode: fresh context features and the frame's own tokens
+                new_enc = ae.encode(frame)
+                fifo = ae.fifo_push(fifo, new_enc["inter"], curr, cfg.ae.keep_first,
+                                    cfg.ae.n_first)
             new_code = new_enc["code"].reshape(b, -1)
             if fixed_shape:
                 merged[:, n:n + size] = new_code

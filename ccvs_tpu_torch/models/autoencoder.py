@@ -17,6 +17,7 @@ from ccvs_tpu_torch.nn.decoder import SkipDecoder
 from ccvs_tpu_torch.nn.encoder import SkipEncoder
 from ccvs_tpu_torch.nn.layers import init_equalized
 from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
+from ccvs_tpu_torch.utils import profiling
 
 
 class FrameAutoencoder(nn.Module):
@@ -213,6 +214,7 @@ class FrameAutoencoder(nn.Module):
         return self.fifo_push(fifo, new_inter, curr, cfg.keep_first, cfg.n_first), rgb
 
     @torch.no_grad()
+    @profiling.spanned("decode")
     def decode_video(self, codes, ctx_frames=None, n_ctx=1, cond_inter=None):
         """Decode tokens ``codes`` ``(B, T, h*w)`` autoregressively in image
         space: the ``n_ctx`` context frames against their own (encoded)
@@ -247,6 +249,7 @@ class FrameAutoencoder(nn.Module):
         return torch.cat(frames, dim=1)
 
     @torch.no_grad()
+    @profiling.spanned("decode")
     def decode_video_layout(self, codes, layout_codes, ctx_frames, ctx_layout, n_ctx=1,
                             interl_gen=None):
         """The layout-conditioned doubly-AR rollout of the shared decoder

@@ -24,6 +24,7 @@ from ccvs_tpu_torch.nn.gpt import (CGPT, GPT, KIND_FRAME, KIND_STATE, build_sche
                                    cache_to_layers, decode_step_fn)
 from ccvs_tpu_torch.nn.quantized import decode_step_fn_int8, quantize_gpt_int8
 from ccvs_tpu_torch.parallel.mesh import draw_rows
+from ccvs_tpu_torch.utils import profiling
 
 
 def _categorical(probs, generator, axis=None):
@@ -160,6 +161,7 @@ class TokenTransformer(nn.Module):
         return nll, {"nll": nll}
 
     @torch.no_grad()
+    @profiling.spanned("tokens")
     def generate(self, code, generator, state_code=None, cond_code=None, delta=None, lbl=None,
                  total_len=None):
         """Extend the given frame tokens ``code`` ``(B, n0)`` (and state
@@ -215,6 +217,7 @@ class TokenTransformer(nn.Module):
         return {"code": code, "state_code": state_code}
 
     @torch.no_grad()
+    @profiling.spanned("tokens")
     def generate_chunk_fixed(self, merged, n, generator):
         """Extend a full-window token buffer ``merged`` ``(B, z_len)``, whose
         first ``n`` tokens are real, by one ``z_chunk`` at positions ``n ..
@@ -326,14 +329,17 @@ class TokenTransformer(nn.Module):
         and ``pos`` advances on the device."""
         model = self.model
         for j in positions:
-            if given[j]:
-                tok = merged[:, j]
-            else:
-                tok = _sample_token(self.cfg, generator, logits, int(kind[j]), self.data_axis)
-                merged[:, j] = tok
-            emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
-            logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
-            pos += 1
+            with profiling.span("tokens.step"):
+                if given[j]:
+                    tok = merged[:, j]
+                else:
+                    with profiling.span("tokens.sample"):
+                        tok = _sample_token(self.cfg, generator, logits, int(kind[j]),
+                                            self.data_axis)
+                    merged[:, j] = tok
+                emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
+                logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
+                pos += 1
 
     def _fill_beam(self, generator, step_fn, merged, given, start, beam_start, kind, s_idx, t_idx,
                    cond_code, delta, lbl):
@@ -372,42 +378,57 @@ class TokenTransformer(nn.Module):
         log_p = torch.zeros(bb, device=dev)
         first_row = torch.arange(b, device=dev)[:, None] * beam
         for j in range(start, length):
-            if given[j]:
-                tok = merged[:, j]
-            elif kind[j] == KIND_STATE:
-                tok = _beam_state_token(cfg, generator, logits, self.data_axis)
-            else:
-                lp = _beam_logprobs(cfg, logits)  # (bb, z_num)
-                if j == beam_start:
-                    lp0 = lp[::beam]  # one row per element: its hypotheses are still clones
-                    score = lp0
-                    if cfg.sample and not cfg.no_sample:
-                        u = draw_rows(self.data_axis, b, lambda n: torch.rand(
-                            (n, lp0.shape[1]), generator=generator, device=dev))
-                        score = lp0 - torch.log(-torch.log(u + 1e-20) + 1e-20)
-                    _, tok = _top_k(score, beam)  # (b, beam)
-                    log_p = log_p + lp0.gather(1, tok).reshape(bb)
-                    tok = tok.reshape(bb)
-                elif cfg.sample:
-                    tok = _categorical(lp.exp(), generator, self.data_axis)
-                    log_p = log_p + lp.gather(1, tok[:, None])[:, 0]
+            with profiling.span("tokens.step"):
+                parent = None
+                if given[j]:
+                    tok = merged[:, j]
                 else:
-                    vals, cand = _top_k(lp, beam)  # (bb, beam)
-                    total = (log_p[:, None] + vals).reshape(b, beam * beam)
-                    new_log_p, keep = _top_k(total, beam)  # (b, beam)
-                    tok = cand.reshape(b, beam * beam).gather(1, keep).reshape(bb)
-                    parent = (first_row + keep // beam).reshape(bb)
+                    with profiling.span("tokens.sample"):
+                        if kind[j] == KIND_STATE:
+                            tok = _beam_state_token(cfg, generator, logits, self.data_axis)
+                        else:
+                            tok, log_p, parent = self._beam_frame_token(
+                                generator, logits, j == beam_start, log_p, first_row)
+                if parent is not None:
                     merged = merged[parent]
                     for side in range(2):
                         torch.index_select(caches[cur][side], 1, parent,
                                            out=caches[1 - cur][side])
                     cur = 1 - cur
-                    log_p = new_log_p.reshape(bb)
-            merged[:, j] = tok
-            emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
-            logits = step_fn(model, emb1=emb1, pos=pos, cache=layers[cur])
-            pos += 1
+                merged[:, j] = tok
+                emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
+                logits = step_fn(model, emb1=emb1, pos=pos, cache=layers[cur])
+                pos += 1
         return merged.reshape(b, beam, length), log_p.reshape(b, beam)
+
+    def _beam_frame_token(self, generator, logits, first, log_p, first_row):
+        """The tokens of one generated frame position of beam search, the
+        hypotheses' summed log-probabilities after it, and the hypotheses
+        (rows of ``B * beam``) they extend where the beam keeps the best
+        ``beam`` of ``beam``^2 candidates (else None): at the ``first``
+        generated position each element's ``beam`` distinct tokens, then one
+        sampled token a hypothesis or the best candidates.
+        ``first_row`` ``(B, 1)``: each element's first row."""
+        cfg, beam = self.cfg, self.cfg.beam_size
+        b, bb, dev = first_row.shape[0], log_p.shape[0], logits.device
+        lp = _beam_logprobs(cfg, logits)  # (bb, z_num)
+        if first:
+            lp0 = lp[::beam]  # one row per element: its hypotheses are still clones
+            score = lp0
+            if cfg.sample and not cfg.no_sample:
+                u = draw_rows(self.data_axis, b, lambda n: torch.rand(
+                    (n, lp0.shape[1]), generator=generator, device=dev))
+                score = lp0 - torch.log(-torch.log(u + 1e-20) + 1e-20)
+            _, tok = _top_k(score, beam)  # (b, beam)
+            return tok.reshape(bb), log_p + lp0.gather(1, tok).reshape(bb), None
+        if cfg.sample:
+            tok = _categorical(lp.exp(), generator, self.data_axis)
+            return tok, log_p + lp.gather(1, tok[:, None])[:, 0], None
+        vals, cand = _top_k(lp, beam)  # (bb, beam)
+        total = (log_p[:, None] + vals).reshape(b, beam * beam)
+        new_log_p, keep = _top_k(total, beam)  # (b, beam)
+        tok = cand.reshape(b, beam * beam).gather(1, keep).reshape(bb)
+        return tok, new_log_p.reshape(bb), (first_row + keep // beam).reshape(bb)
 
 
 class ContinuousTransformer(nn.Module):
@@ -452,6 +473,7 @@ class ContinuousTransformer(nn.Module):
         return mse, {"nll": mse}
 
     @torch.no_grad()
+    @profiling.spanned("tokens")
     def generate(self, code, total_len, normalize_pred=False):
         """Greedy rollout of ``code`` ``(B, n0, n_in)`` to ``total_len``
         vectors (``transformer_model.py:344-348``): one prefill over the
@@ -495,7 +517,8 @@ class ContinuousTransformer(nn.Module):
         pe = model.pos_emb[0].float()
         pos = torch.full((1,), n0, dtype=torch.int32, device=buf.device)
         for j in range(n0 + 1, length):
-            emb1 = (F.linear(buf[:, j - 1:j].float(), w, bias) + pe[j - 1]).to(model.dtype)
-            buf[:, j] = pick(decode_step_fn(model, emb1, pos, layers))
-            pos += 1
+            with profiling.span("tokens.step"):
+                emb1 = (F.linear(buf[:, j - 1:j].float(), w, bias) + pe[j - 1]).to(model.dtype)
+                buf[:, j] = pick(decode_step_fn(model, emb1, pos, layers))
+                pos += 1
         return buf

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ccvs_tpu_torch.ops import native
+from ccvs_tpu_torch.utils import profiling
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 CLUSTER = 8  # K2's CTAs per (batch, head): each owns L / 8 cache positions
@@ -89,7 +90,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos):
     """Single-token attention against a KV cache; ``(B, nh, hd)`` in q's
     dtype. ``pos`` is an int or an int32 tensor of shape ``()`` or ``(1,)``
     on q's device. CPU tensors take :func:`flash_decode_plain`; CUDA tensors
-    launch K2 once (counted in ``flash_decode_attention.launches``)."""
+    launch K2 once (counted in the tracer's ``k2.launches``)."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos)
     if q.device.type != "cuda" or k_cache.device != q.device or v_cache.device != q.device:
@@ -114,9 +115,7 @@ def flash_decode_attention(q, k_cache, v_cache, pos):
     err = lib.ccvs_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_dev, pos_host,
         out.data_ptr(), b * nh, length, hd, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], stream)
-    flash_decode_attention.launches += 1
+    profiling.count("k2.launches")
     native.check(err, "ccvs_flash_decode")
     return out
 
-
-flash_decode_attention.launches = 0

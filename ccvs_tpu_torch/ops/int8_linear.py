@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ccvs_tpu_torch.ops import native
+from ccvs_tpu_torch.utils import profiling
 
 _INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA needs more than 16 rows
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,9 +94,7 @@ class Int8Linear:
     On CUDA the weights, scales and biases are checked here, once (device,
     dtype, shape, contiguity, 16-byte alignment), and each call checks only x
     and launches K3 once per 16 rows, each launch counted in
-    ``Int8Linear.launches``."""
-
-    launches = 0
+    the tracer's ``k3.launches``."""
 
     def __init__(self, w8s, scales, biases):
         n = len(w8s)
@@ -167,7 +166,7 @@ class Int8Linear:
         for r0 in range(0, b, step):
             err = self._launch(self._args_ptr, xp + r0 * row_bytes, code, op + 4 * r0 * o,
                                b * o, min(step, b - r0), stream)
-            Int8Linear.launches += 1
+            profiling.count("k3.launches")
             if err:
                 native.check(err, "ccvs_int8_linear")
         return out

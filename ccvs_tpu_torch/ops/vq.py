@@ -17,6 +17,7 @@ straight-through value of :func:`vq_st`.
 import torch
 
 from ccvs_tpu_torch.ops import native
+from ccvs_tpu_torch.utils import profiling
 
 
 def vq_indices_plain(z, codebook):
@@ -55,7 +56,7 @@ def vq_indices_split_plain(z, codebook):
 def vq_indices(z, codebook):
     """Nearest-code indices, z ``(N, D)``, codebook ``(K, D)`` -> ``(N,)``
     int32. CPU tensors take :func:`vq_indices_plain`; CUDA tensors launch K1
-    (counted in ``vq_indices.launches``): its pre-pass, the tensor-core
+    (counted in the tracer's ``k1.launches``): its pre-pass, the tensor-core
     search and the merge of the code splits, with their scratch allocated
     here. Integer indices carry no gradient: both inputs are read detached,
     so a ``z`` or codebook under autograd is neither copied nor traced."""
@@ -89,12 +90,9 @@ def vq_indices(z, codebook):
         z.data_ptr(), codebook.data_ptr(), z_split.data_ptr(), cb_split.data_ptr(),
         e2.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(), idx.data_ptr(), n, k, d,
         splits, stream)
-    vq_indices.launches += 1
+    profiling.count("k1.launches")
     native.check(err, "ccvs_vq_argmin")
     return idx
-
-
-vq_indices.launches = 0
 
 
 def vq_lookup(z, codebook):

@@ -25,6 +25,7 @@ from ccvs_tpu_torch.parallel.mesh import DataAxis, reduce_grads
 from ccvs_tpu_torch.parallel.sp import seq_shard
 from ccvs_tpu_torch.train.states import (AETrainState, SimpleTrainState, ema_update, fold_in,
                                          make_transformer_optimizer)
+from ccvs_tpu_torch.utils import profiling
 
 
 def global_norm(grads, splits=None):
@@ -241,6 +242,7 @@ def make_transformer_step(transformer, cfg, n_iter, mesh=None):
         # the replicated loss, and the shares are summed below
         (loss / n_model if sp else loss).backward()
 
+    @profiling.spanned("train.step", is_root=True)
     def step(state, batch):
         model = state.params
         model.eval()
@@ -281,7 +283,8 @@ def make_transformer_step(transformer, cfg, n_iter, mesh=None):
         if mesh is not None:
             splits = [(tp_split(gpt, n)[1],) if tp_split(gpt, n) else () for n, _ in named]
         metrics["gnorm"] = global_norm([p.grad for _, p in named], splits)
-        state.opt.step()
+        with profiling.span("train.optimizer"):
+            state.opt.step()
         state.step += 1
         return state, metrics
 

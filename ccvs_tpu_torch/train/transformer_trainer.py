@@ -27,6 +27,7 @@ from ccvs_tpu_torch.parallel.tp import shard_gpt_params
 from ccvs_tpu_torch.train.ae_trainer import (cycle_loader, host_shard, is_main_process,
                                              to_device, trainer_device)
 from ccvs_tpu_torch.train.steps import make_transformer_step
+from ccvs_tpu_torch.utils import profiling
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from ccvs_tpu_torch.utils.logging import Logger
 from ccvs_tpu_torch.utils.preemption import PreemptionGuard
@@ -121,6 +122,7 @@ class TransformerTrainer:
         return idx.reshape(b, -1)
 
     @torch.no_grad()
+    @profiling.spanned("train.encode", is_root=True)
     def encode_batch(self, batch) -> dict:
         """Video batch (tensors on the device) -> token batch with its
         conditioning (``helpers/transformer_trainer.py:56-81``)."""

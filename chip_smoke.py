@@ -211,10 +211,17 @@ import subprocess
 import sys
 import time
 
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+import torch
+
+from ccvs_bench import common
+from ccvs_bench.counts import kernels
+from ccvs_bench.tracer import DeviceTrace
+from ccvs_tpu_torch.utils import profiling
+
+# peaks beside the benchmark's (ccvs_bench/counts/kernels.py: HBM, TF32, bf16)
 PEAK_FP32_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-PEAK_TF32_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 PEAK_INT8_PER_S = 1979e12    # H100 SXM int8 on the tensor cores, dense
+CARD = torch.device("cuda")
 BATCH, VID_LEN = 2, 16
 # frames of the rollouts that drive one mode each (phases 7, 9, 13 (c),
 # 14 (b) and 15; 8 until phase 16 came) and of the drums clip (phase 8,
@@ -284,17 +291,18 @@ def time_ms(fn, iters=25, warmup=3, flush_l2=True):
     return statistics.median(times)
 
 
-def _synced_since(t0):
-    import torch
-
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
 def bound_ms(n_bytes, n_ops, peak_ops):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """The least time of ``n_ops`` operations at ``peak_ops`` and ``n_bytes``
+    at the HBM peak (``ccvs_bench/counts/kernels.py bound_s``) in ms, and
+    which of the two sets it."""
+    t = kernels.bound_s(n_ops, n_bytes, peak_ops)
+    return 1e3 * t, ("bytes" if t == n_bytes / kernels.PEAK_HBM else "operations")
+
+
+def kernel_launches(kernel):
+    """The tracer's count of ``kernel``'s launches (``k1``, ``k2``, ``k3``)
+    since its last ``profiling.reset()``."""
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 def check_vq(z, cb):
@@ -388,13 +396,13 @@ def phase_kernels(records):
         ms = time_ms(lambda: vq_indices(z, cb))
         plain = time_ms(lambda: vq_indices_plain(z, cb))
         lib = time_ms(lambda: torch.cdist(z, cb).argmin(1))
-        n_bytes = 4 * (n * d + k * d + n)
-        fp32, _ = bound_ms(n_bytes, 2 * n * k * d, PEAK_FP32_PER_S)
-        bnd, by = bound_ms(n_bytes, 3 * 2 * n * k * d, PEAK_TF32_PER_S)  # three TF32 products
+        flops, n_bytes = kernels.k1_work(n, k, d)
+        fp32, _ = bound_ms(n_bytes, flops, PEAK_FP32_PER_S)
+        bnd, by = bound_ms(n_bytes, flops, kernels.PEAK_TF32)
         log(f"{what}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+argmin {lib:.4f} ms; "
-            f"bound {bnd:.4f} ms on the tensor cores in 3xTF32 ({by}; {100 * bnd / ms:.1f}% of "
-            f"it), {fp32:.4f} ms on the fp32 CUDA cores, bytes alone "
-            f"{n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+            f"bound {bnd:.4f} ms at the TF32 peak, the algorithm's 2nkd once ({by}; "
+            f"{100 * bnd / ms:.1f}% of it), {fp32:.4f} ms on the fp32 CUDA cores, bytes alone "
+            f"{n_bytes / kernels.PEAK_HBM * 1e3:.4f} ms")
         shapes.append({"n": n, "k": k, "d": d, "max_abs_err": gap, "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": bnd, "bound_by": by,
                        "bound_fp32_cuda_cores_ms": fp32})
@@ -536,7 +544,7 @@ def phase_beam_attention(g, pos_t, shapes):
         n_bytes = 2 * 2 * kl[:, :, :, :rows].numel() * kl.element_size()
         log(f"beam cache reorder, rows [0, {rows}) of 24 layers x k and v of "
             f"{tuple(kl.shape[1:])} bf16 ({n_bytes / 2 / 1e9:.2f} GB gathered): {ms:.4f} ms, "
-            f"bytes bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+            f"bytes bound {n_bytes / kernels.PEAK_HBM * 1e3:.4f} ms")
     del kl, vl, kl2, vl2
     return worst
 
@@ -906,28 +914,23 @@ def run_path(records, card, cfg, gen, vid, n_ctx, k1, k2_steps, run=None, name=N
     recorded as ``name`` (default ``cfg.name``). Returns the output and its
     wall time."""
     import torch
-    from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.int8_linear import Int8Linear
-    from ccvs_tpu_torch.ops.vq import vq_indices
 
     name = name or cfg.name
     vid_len = vid.shape[1]
     n_layer = cfg.gpt.n_layer
     want = {"vq_argmin": k1, "flash_decode": n_layer * k2_steps,
             "int8_linear": (4 * n_layer + 1) * k2_steps if cfg.gpt.serve_int8 else 0}
-    wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
-                "int8_linear": Int8Linear}
+    counted = {"vq_argmin": "k1", "flash_decode": "k2", "int8_linear": "k3"}
     if run is None:
         def run(g):
             return gen.generate(vid, g, rec=False, n_ctx_frames=n_ctx, **kw)
-    for fn in wrappers.values():
-        fn.launches = 0
+    profiling.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = run(torch.Generator(device="cuda").manual_seed(4))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {key: fn.launches for key, fn in wrappers.items()}
+    launches = {key: kernel_launches(k) for key, k in counted.items()}
     ROLLOUT_S[name] = dt
 
     fake = out["fake"]
@@ -990,15 +993,15 @@ def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=Non
     stages = {}
     t0 = time.perf_counter()
     enc = ae.encode(vid)
-    stages["encode"] = _synced_since(t0)
+    stages["encode"] = common.synced(CARD) - t0
     t0 = time.perf_counter()
     ctx_code = enc["code"].reshape(BATCH, -1)[:, :n_ctx * size]
     code = tr.generate(ctx_code, torch.Generator(device="cuda").manual_seed(3),
                        total_len=vid_len * size)["code"]
-    stages["tokens"] = _synced_since(t0)
+    stages["tokens"] = common.synced(CARD) - t0
     t0 = time.perf_counter()
     ae.decode_video(code.reshape(BATCH, vid_len, size), ctx_frames=vid[:, :n_ctx], n_ctx=n_ctx)
-    stages["decode"] = _synced_since(t0)
+    stages["decode"] = common.synced(CARD) - t0
     DECODE_S[cfg.name] = stages["decode"] / (vid_len - n_ctx)
     log(f"{cfg.name} warm-up rollout by stage: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
@@ -1310,24 +1313,19 @@ def phase_serving(records, card):
 
 
 def device_profile(fn):
-    """``fn()`` timed without the profiler, then traced: (wall s, device busy
-    s, device time by kernel name, largest first, launches by kernel name)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """``fn()`` timed without the profiler, then traced
+    (``ccvs_bench/tracer.py``): (wall s, device busy s (the union of the
+    device operations' intervals), device time by kernel name, largest
+    first, launches by kernel name)."""
     t0 = time.perf_counter()
     fn()
-    wall = _synced_since(t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = common.synced(CARD) - t0
+    with DeviceTrace() as trace:
         fn()
-        torch.cuda.synchronize()
-    by_name, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-            count[e.name] = count.get(e.name, 0) + 1
-    return wall, sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1]), count
+    by_name = trace.by_name()
+    return (wall, trace.busy_s, sorted(((k, t) for k, (t, _) in by_name.items()),
+                                       key=lambda kv: -kv[1]),
+            {k: n for k, (_, n) in by_name.items()})
 
 
 def phase_profile(ae, tr, vid, code):
@@ -1742,12 +1740,6 @@ def phase_train_reference():
             warmup=False)
 
 
-def _events():
-    import torch
-
-    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-
 def phase_train_bairhd(records, card):
     """(b) The full-width BAIR-256 transformer step: a 24 x 1024 GPT with
     fp32 parameters under bf16 compute, on batches of 16 clips of 16
@@ -1759,7 +1751,6 @@ def phase_train_bairhd(records, card):
     import torch
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.models import FrameAutoencoder
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import to_device
     from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 
@@ -1779,25 +1770,22 @@ def phase_train_bairhd(records, card):
     log(f"train bairhd: {n_params / 1e6:.1f} M GPT parameters in fp32, bf16 compute; batch "
         f"{tuple(batch['vid'].shape)} (made in {t_data:.2f} s), {n_tokens} input tokens a step")
     torch.cuda.reset_peak_memory_stats()
-    losses, enc_ms, step_ms, wall = [], [], [], []
+    losses, wall = [], []
+    spans = common.Spans(True)
     for i in range(12):
         if i == 2:
-            vq_indices.launches = 0
+            profiling.reset()
             t_timed = time.perf_counter()
-        (e0, e1), (s0, s1) = _events(), _events()
         w0 = time.perf_counter()
-        e0.record()
-        tokens = tr.encode_batch(batch)
-        e1.record()
-        s0.record()
-        state, m = tr.step(state, tokens)
-        s1.record()
+        with spans.span("encode"):
+            tokens = tr.encode_batch(batch)
+        with spans.span("step"):
+            state, m = tr.step(state, tokens)
         losses.append(float(m["nll"]))  # waits for the step
         wall.append(time.perf_counter() - w0)
-        enc_ms.append(e0.elapsed_time(e1))
-        step_ms.append(s0.elapsed_time(s1))
-    dt = _synced_since(t_timed)
-    launches = vq_indices.launches
+    dt = common.synced(CARD) - t_timed
+    enc_ms, step_ms = spans.ms()["encode"], spans.ms()["step"]
+    launches = kernel_launches("k1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches != 10:
         raise AssertionError(f"train bairhd: K1 launched {launches} times in 10 steps, expected 10")
@@ -1828,15 +1816,13 @@ def phase_train_bairhd(records, card):
         raise AssertionError(f"train bairhd: loss {losses[-1]} after the 10 timed steps not "
                              f"below step 1's {losses[1]}")
     # the AdamW update alone, once more from the last step's gradients
-    o0, o1 = _events()
-    o0.record()
-    state.opt.step()
-    o1.record()
-    o1.synchronize()
+    spans = common.Spans(True)
+    with spans.span("adamw"):
+        state.opt.step()
     # fp32 parameter, gradient and both moments read, parameter and moments
     # written: 28 bytes a parameter
     adam_bound, _ = bound_ms(28 * n_params, 0, PEAK_FP32_PER_S)
-    log(f"train bairhd: the AdamW update alone {o0.elapsed_time(o1):.2f} ms (CUDA events); "
+    log(f"train bairhd: the AdamW update alone {spans.ms()['adamw'][0]:.2f} ms (CUDA events); "
         f"bytes bound {adam_bound:.2f} ms ({28 * n_params / 1e9:.2f} GB)")
     box = [state]
 
@@ -1877,14 +1863,14 @@ def phase_train_state(records, card):
     state = tr.init_state(tr.model)
     state, _ = tr.step(state, batches[0])  # warm-up
     torch.cuda.synchronize()
-    vq_indices.launches = 0
+    profiling.reset()
     t0 = time.perf_counter()
     state, m = tr.step(state, batches[1])
-    dt = _synced_since(t0)
-    if vq_indices.launches != 2:
-        raise AssertionError(f"train state: K1 launched {vq_indices.launches} times a step, "
+    dt = common.synced(CARD) - t0
+    if kernel_launches("k1") != 2:
+        raise AssertionError(f"train state: K1 launched {kernel_launches('k1')} times a step, "
                              "expected 2")
-    records["vq_argmin"]["launches_by_rollout"]["train_state (1 step)"] = vq_indices.launches
+    records["vq_argmin"]["launches_by_rollout"]["train_state (1 step)"] = kernel_launches("k1")
     # the state quantizer through K1: its indices the plain search's (a
     # near-tie aside, as check_vq allows), and the codebook's gradient that
     # of the gather alone, 2 beta (e_k - z_i) / N summed over the rows i
@@ -2391,7 +2377,6 @@ def phase_ae_bairhd(records, card):
 
     import torch
     from ccvs_tpu_torch.config import bairhd_config
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
 
     base = bairhd_config()
@@ -2421,30 +2406,28 @@ def phase_ae_bairhd(records, card):
     split, wall, losses = [], [], []
     for i, it in enumerate(its):
         if i == 2:
-            vq_indices.launches = 0
+            profiling.reset()
             t_timed = time.perf_counter()
-        events, fake, ms = [], {}, {}
+        spans, fake, ms = common.Spans(True), {}, {}
         w0 = time.perf_counter()
         for kind, mode in AE_STEPS:
             if kind == "r1" and it % cfg.ae.d_reg_every:
                 continue
-            e0, e1 = _events()
-            e0.record()
-            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
-                                                  img if mode == "img" else vid, fake.get(mode))
-            e1.record()
-            events.append((f"{kind} {mode}", e0, e1))
+            with spans.span(f"{kind} {mode}"):
+                state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                      img if mode == "img" else vid,
+                                                      fake.get(mode))
             ms.update(m)
         state.step = it + 1
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - w0)
-        split.append({name: e0.elapsed_time(e1) for name, e0, e1 in events})
+        split.append({name: t[0] for name, t in spans.ms().items()})
         losses.append({k: float(v) for k, v in ms.items()})
-    dt = _synced_since(t_timed)
-    launches = vq_indices.launches
+    dt = common.synced(CARD) - t_timed
+    launches = kernel_launches("k1")
     _, psnr = tr.rec_eval(state.ema, img["img"][:16])
     torch.cuda.synchronize()
-    launches_eval = vq_indices.launches - launches
+    launches_eval = kernel_launches("k1") - launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches != 2 * 5 or launches_eval != 1:
         raise AssertionError(f"train ae bairhd: K1 launched {launches} times in 5 iterations "
@@ -2850,9 +2833,6 @@ def phase_generate_bairhd(records, card):
     from ccvs_tpu_torch import cli
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.eval import fvd, metrics
-    from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.int8_linear import Int8Linear
-    from ccvs_tpu_torch.ops.vq import vq_indices
 
     cfg = bairhd_config()
     b, t = cfg.data.batch_size_vid * cfg.data.batch_size_valid_mult, cfg.data.vid_len
@@ -2866,20 +2846,18 @@ def phase_generate_bairhd(records, card):
         torch.cuda.empty_cache()
         log(f"generate bairhd set-up: {b} clips of {t} PNG frames at 256 px and seeded bf16 "
             f"checkpoints in {time.perf_counter() - t0:.1f} s")
-        wrappers = {"vq_argmin": vq_indices, "flash_decode": flash_decode_attention,
-                    "int8_linear": Int8Linear}
+        counted = {"vq_argmin": "k1", "flash_decode": "k2", "int8_linear": "k3"}
         # K1: the clips' encode and the context frame's re-encode in the fake
         # and the rec decode; K2: a launch a layer in each decode step
         want = {"vq_argmin": 3, "flash_decode": cfg.gpt.n_layer * (t - 1) * size,
                 "int8_linear": 0}
-        for fn in wrappers.values():
-            fn.launches = 0
+        profiling.reset()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = cli.main(["generate", "--preset", "bairhd", "--dataroot", bair, "--save-path",
                         root, "--ae-ckpt", ae_dir, "--gpt-ckpt", gpt_dir, "--n-batches", "1"])
         wall = time.perf_counter() - t0
-        launches = {key: fn.launches for key, fn in wrappers.items()}
+        launches = {key: kernel_launches(k) for key, k in counted.items()}
         if launches != want:
             raise AssertionError(f"generate bairhd: launches {launches}, expected {want}")
         name = f"bairhd cli generate (batch {b}, rec)"
@@ -2926,7 +2904,7 @@ def phase_generate_bairhd(records, card):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         emb = [fvd.embeddings_from_videos(v, i3d) for v in (real, fake)]
-        i3d_s = _synced_since(t0)
+        i3d_s = common.synced(CARD) - t0
         t0 = time.perf_counter()
         fvd_i3d = fvd.frechet_distance(*emb)
         scipy_s = time.perf_counter() - t0
@@ -2943,17 +2921,17 @@ def phase_generate_bairhd(records, card):
         t0 = time.perf_counter()
         for i in range(b):
             lp.distance(r[i], f_[i])
-        lpips_s = _synced_since(t0)
+        lpips_s = common.synced(CARD) - t0
         ru, fu = ((x.double() + 1) / 2 for x in (r, f_))
         metrics.ssim_frames(ru[0], fu[0])
         t0 = time.perf_counter()
         for i in range(b):
             metrics.ssim_frames(ru[i], fu[i])
-        ssim_s = _synced_since(t0)
+        ssim_s = common.synced(CARD) - t0
         t0 = time.perf_counter()
         for i in range(b):
             metrics.psnr_frames(ru[i], fu[i])
-        psnr_s = _synced_since(t0)
+        psnr_s = common.synced(CARD) - t0
         log(f"LPIPS bairhd (VGG19, 256 px, a clip of {t} frames a call): {b * t} frame pairs "
             f"in {lpips_s:.3f} s = {b * t / lpips_s:.1f} pairs/s; SSIM (fp64, 7x7) "
             f"{ssim_s:.3f} s, PSNR {psnr_s:.3f} s for the same frames, on the card")
@@ -3132,26 +3110,23 @@ def _ada_iterations(tr, state, img, vid, its):
     rows = []
     for it in its:
         gen = iteration_generator(tr.cfg.seed, it, "cuda")
-        fake, ms, split = {}, {}, {}
+        fake, ms, spans = {}, {}, common.Spans(True)
         w0 = time.perf_counter()
         for kind, mode in AE_STEPS:
             if kind == "r1" and it % acfg.d_reg_every:
                 continue
             p0 = float(state.ada_p) if (kind, mode) == ("d", "img") else None
-            e0, e1 = _events()
-            e0.record()
-            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
-                                                  img if mode == "img" else vid, fake.get(mode),
-                                                  gen)
-            e1.record()
-            split[f"{kind} {mode}"] = (e0, e1)
+            with spans.span(f"{kind} {mode}"):
+                state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                      img if mode == "img" else vid,
+                                                      fake.get(mode), gen)
             ms.update(m)
             if p0 is not None:
                 ada = (p0, float(state.ada_p), float(m["rt_stat"]))
         state.step = it + 1
         torch.cuda.synchronize()
         rows.append({"it": it, "wall": time.perf_counter() - w0, "ada": ada,
-                     "split": {k: a.elapsed_time(b) for k, (a, b) in split.items()},
+                     "split": {k: t[0] for k, t in spans.ms().items()},
                      "losses": {k: float(v) for k, v in ms.items()}})
     return state, rows
 
@@ -3181,7 +3156,6 @@ def phase_ada_bairhd(records, card):
 
     import torch
     from ccvs_tpu_torch.config import Config, bairhd_config
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
 
     base = bairhd_config()
@@ -3198,9 +3172,9 @@ def phase_ada_bairhd(records, card):
     n_real = n_real_images(tr.losses, img["img"].shape[0])
     torch.cuda.reset_peak_memory_stats()
     state, warm = _ada_iterations(tr, state, img, vid, [1, 2])
-    vq_indices.launches = 0
+    profiling.reset()
     state, rows = _ada_iterations(tr, state, img, vid, [3, 4, 16])
-    launches = vq_indices.launches
+    launches = kernel_launches("k1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches != 2 * 3:
         raise AssertionError(f"train ada bairhd: K1 launched {launches} times in 3 iterations "
@@ -3229,10 +3203,10 @@ def phase_ada_bairhd(records, card):
     tr.init_params()
     state = tr.init_state()
     img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
-    vq_indices.launches = 0
+    profiling.reset()
     state, rows = _ada_iterations(tr, state, img, vid, [0, 1, 2])
-    if vq_indices.launches != 2 * 3:
-        raise AssertionError(f"train ada r5_bair: K1 launched {vq_indices.launches} times in 3 "
+    if kernel_launches("k1") != 2 * 3:
+        raise AssertionError(f"train ada r5_bair: K1 launched {kernel_launches('k1')} times in 3 "
                              "iterations (expected 6)")
     _check_ada_rows("train ada r5_bair", tr, rows, n_real_images(tr.losses, img["img"].shape[0]))
     log(f"train ada r5_bair: runs_r5/r5_bair_eval_config.json as it is ({cfg.ae.max_dim} px, "
@@ -3274,7 +3248,6 @@ def phase_layout_bairhd(records, card):
 
     import torch
     from ccvs_tpu_torch.data import create_dataset, group_collate
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
     from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 
@@ -3288,7 +3261,7 @@ def phase_layout_bairhd(records, card):
     t0 = time.perf_counter()
     gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
                  layout=lay[:, :2])
-    warm = _synced_since(t0)
+    warm = common.synced(CARD) - t0
     tpf = cfg.ae.tokens_per_frame + cfg.gpt.state_size
     steps = (MODE_LEN - 1) * tpf
     out, dt = run_path(records, card, cfg, gen, vid[:, :MODE_LEN], 1, 4, steps,
@@ -3309,13 +3282,13 @@ def phase_layout_bairhd(records, card):
     tt = TransformerTrainer(cfg, ae)
     tstate = tt.init_state()
     for i in range(2):
-        vq_indices.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         tb = tt.encode_batch({"vid": vid, "layout": lay})
         tstate, m = tt.step(tstate, tb)
-        dt = _synced_since(t0)
-        if vq_indices.launches != 2:
-            raise AssertionError(f"layout transformer step: K1 launched {vq_indices.launches} "
+        dt = common.synced(CARD) - t0
+        if kernel_launches("k1") != 2:
+            raise AssertionError(f"layout transformer step: K1 launched {kernel_launches('k1')} "
                                  "times (expected 2)")
     if not all(math.isfinite(float(v)) for v in m.values()):
         raise AssertionError(f"layout transformer step: non-finite metrics {m}")
@@ -3336,12 +3309,12 @@ def phase_layout_bairhd(records, card):
     assert img["layout"].shape == (24, 256, 256) and vid["layout"].shape == (4, 4, 256, 256)
     torch.cuda.reset_peak_memory_stats()
     for it in (1, 2):
-        vq_indices.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         astate, gm, dm, _ = atr.iteration(astate, it, img, vid)
-        dt = _synced_since(t0)
-        if vq_indices.launches != 4:
-            raise AssertionError(f"layout AE iteration: K1 launched {vq_indices.launches} times "
+        dt = common.synced(CARD) - t0
+        if kernel_launches("k1") != 4:
+            raise AssertionError(f"layout AE iteration: K1 launched {kernel_launches('k1')} times "
                                  "(expected 4)")
     terms = {k: round(float(v), 4) for k, v in gm.items() if "layout" in k}
     if set(terms) != {"layout_quant_img", "layout_img", "layout_quant_vid", "layout_vid"} or \
@@ -3593,7 +3566,7 @@ def phase_reference_checkpoint(records, card):
     t0 = time.perf_counter()
     pp.load_ported(ae, pp.port_autoencoder(cfg.ae, sds))
     pp.load_ported(tr.model, pp.port_gpt(cfg.gpt, sds["transformer_t"]))
-    t_load = _synced_since(t0)
+    t_load = common.synced(CARD) - t0
     n = 0
     for group, net in nets.items():
         for name, p in net.named_parameters():
@@ -3612,7 +3585,7 @@ def phase_reference_checkpoint(records, card):
     t0 = time.perf_counter()
     gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
                  n_ctx_frames=1)
-    log(f"reference checkpoint warm-up rollout (2 frames): {_synced_since(t0):.3f} s")
+    log(f"reference checkpoint warm-up rollout (2 frames): {common.synced(CARD) - t0:.3f} s")
     steps = (MODE_LEN - 1) * cfg.gpt.size
     _, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
     if "bairhd" in ROLLOUT_S:
@@ -3630,7 +3603,6 @@ def phase_train_emb_none(records, card):
     import torch
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.models import FrameAutoencoder
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import to_device
     from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 
@@ -3648,12 +3620,12 @@ def phase_train_emb_none(records, card):
     losses = []
     for i in range(4):
         if i == 1:
-            vq_indices.launches = 0
+            profiling.reset()
             t0 = time.perf_counter()
         state, m = tr.step(state, tr.encode_batch(batch))
         losses.append(float(m["nll"]))
-    dt = _synced_since(t0)
-    launches = vq_indices.launches
+    dt = common.synced(CARD) - t0
+    launches = kernel_launches("k1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if launches != 3 or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train emb_mode None: K1 {launches} launches in 3 steps (expected "
@@ -3677,8 +3649,6 @@ def phase_continuous_bairhd(records, card):
     import torch.nn.functional as F
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.models import ContinuousTransformer
-    from ccvs_tpu_torch.ops.attention import flash_decode_attention
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.states import make_transformer_optimizer
 
     cfg = dataclasses.replace(bairhd_config().gpt, n_in=512, n_proposals=4, z_len=1024)
@@ -3698,7 +3668,7 @@ def phase_continuous_bairhd(records, card):
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
-    dt = _synced_since(t0)
+    dt = common.synced(CARD) - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"continuous bairhd: losses {losses}")
@@ -3710,15 +3680,15 @@ def phase_continuous_bairhd(records, card):
     serve.load_state_dict(ct.state_dict())
     del ct, opt
     n0, steps = 64, cfg.z_len - 64 - 1
-    flash_decode_attention.launches = vq_indices.launches = 0
+    profiling.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = serve.generate(code[:2, :n0], cfg.z_len, normalize_pred=True)
-    dt = _synced_since(t0)
-    launches = flash_decode_attention.launches
-    if launches != cfg.n_layer * steps or vq_indices.launches:
+    dt = common.synced(CARD) - t0
+    launches = kernel_launches("k2")
+    if launches != cfg.n_layer * steps or kernel_launches("k1"):
         raise AssertionError(f"continuous bairhd: K2 {launches} launches (expected "
-                             f"{cfg.n_layer} x {steps}), K1 {vq_indices.launches}")
+                             f"{cfg.n_layer} x {steps}), K1 {kernel_launches('k1')}")
     norms = out[:, n0:].norm(dim=-1)
     if not (out.shape == (2, cfg.z_len, cfg.n_in) and bool(torch.isfinite(out).all())
             and torch.equal(out[:, :n0], code[:2, :n0])
@@ -3763,7 +3733,6 @@ def phase_z_mult_ae(records, card):
     import torch
     from ccvs_tpu_torch.config import bairhd_config
     from ccvs_tpu_torch.nn.encoder import SkipEncoder
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
 
     base = bairhd_config()
@@ -3829,14 +3798,14 @@ def phase_z_mult_ae(records, card):
         f"{float(norms.max()):.4f}")
     if not bool(torch.isfinite(z).all()):
         raise AssertionError("z_mult ae: non-finite latents")
-    vq_indices.launches = 0
+    profiling.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, m, _, _, _ = _ae_step(tr, state, "g", "img", img, None)
-    dt = _synced_since(t0)
+    dt = common.synced(CARD) - t0
     bad = [k for k, v in m.items() if not math.isfinite(float(v))]
-    if vq_indices.launches != 1 or bad:
-        raise AssertionError(f"z_mult ae: K1 {vq_indices.launches} launches (expected 1), "
+    if kernel_launches("k1") != 1 or bad:
+        raise AssertionError(f"z_mult ae: K1 {kernel_launches('k1')} launches (expected 1), "
                              f"non-finite {bad}")
     records["vq_argmin"]["launches_by_rollout"]["train_ae_z_mult (1 image G step)"] = 1
     log(f"z_mult ae: the image G step {dt:.4f} s (first call), peak memory "
@@ -4042,14 +4011,14 @@ def _options_rollout(records, card, cfg):
     t0 = time.perf_counter()
     gen.generate(vid[:, :2], torch.Generator(device="cuda").manual_seed(3), rec=False,
                  n_ctx_frames=1)
-    warm = _synced_since(t0)
+    warm = common.synced(CARD) - t0
     steps = (MODE_LEN - 1) * cfg.gpt.size
     out, dt = run_path(records, card, cfg, gen, vid, 1, 2, steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     code = out["code"].reshape(BATCH, MODE_LEN, -1)
     t0 = time.perf_counter()
     ae.decode_video(code, ctx_frames=vid[:, :1], n_ctx=1)
-    t_dec = _synced_since(t0)
+    t_dec = common.synced(CARD) - t0
     ref = ""
     if "bairhd" in ROLLOUT_S:
         ref = (f"; {dt / steps / (ROLLOUT_S['bairhd'] / ((VID_LEN - 1) * cfg.gpt.size)):.3f}x "
@@ -4068,7 +4037,6 @@ def _options_iteration(cfg, card):
     import dataclasses
 
     import torch
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
 
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic",
@@ -4082,22 +4050,20 @@ def _options_iteration(cfg, card):
     img, vid = to_device(bi, "cuda"), to_device(bv, "cuda")
     torch.cuda.reset_peak_memory_stats()
     for it in (1, 16):  # R1 runs at it % 16 == 0
-        vq_indices.launches = 0
-        events, fake, ms = [], {}, {}
+        profiling.reset()
+        spans, fake, ms = common.Spans(True), {}, {}
         w0 = time.perf_counter()
         for kind, mode in AE_STEPS:
             if kind == "r1" and it % cfg.ae.d_reg_every:
                 continue
-            e0, e1 = _events()
-            e0.record()
-            state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
-                                                  img if mode == "img" else vid, fake.get(mode))
-            e1.record()
-            events.append((f"{kind} {mode}", e0, e1))
+            with spans.span(f"{kind} {mode}"):
+                state, m, fake[mode], _, _ = _ae_step(tr, state, kind, mode,
+                                                      img if mode == "img" else vid,
+                                                      fake.get(mode))
             ms.update(m)
-        wall = _synced_since(w0)
-        if vq_indices.launches != 2:
-            raise AssertionError(f"{cfg.name} AE iteration: K1 launched {vq_indices.launches} "
+        wall = common.synced(CARD) - w0
+        if kernel_launches("k1") != 2:
+            raise AssertionError(f"{cfg.name} AE iteration: K1 launched {kernel_launches('k1')} "
                                  "times (expected 2)")
     bad = [k for k, v in ms.items() if not math.isfinite(float(v))]
     if bad:
@@ -4106,7 +4072,7 @@ def _options_iteration(cfg, card):
         f"{vid['vid'].shape[0]} clips of {vid['vid'].shape[1]} frames, after one warm-up "
         f"iteration): {wall:.4f} s (host clock, synchronized); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 2 launches; by step (CUDA "
-        "events): " + ", ".join(f"{n} {e0.elapsed_time(e1):.2f} ms" for n, e0, e1 in events)
+        "events): " + ", ".join(f"{n} {t[0]:.2f} ms" for n, t in spans.ms().items())
         + f"; on {card}")
     return 2
 
@@ -4138,7 +4104,7 @@ def options_set_b(records, card, vid, code, t_dec_a):
     preset = FrameAutoencoder(bairhd_config().ae, dtype=torch.bfloat16).init(seed=0)
     t0 = time.perf_counter()
     preset.decode_video(code, ctx_frames=vid[:, :1], n_ctx=1)
-    t_pre = _synced_since(t0)
+    t_pre = common.synced(CARD) - t0
     del preset
     per = {"set B": t_dec, "set A": t_dec_a, "the preset on set A's tokens": t_pre}
     log("options ae: the decode stage a generated frame (7 frames, batch 2, host clock): "
@@ -4152,7 +4118,7 @@ def options_set_b(records, card, vid, code, t_dec_a):
     frames = clip(cfg, 1)
     t0 = time.perf_counter()
     out = ae.decode_video(codes, ctx_frames=frames, n_ctx=1)
-    dt = _synced_since(t0)
+    dt = common.synced(CARD) - t0
     if out.shape != (BATCH, n, *frames.shape[2:]) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"bairhd_options_b: the 17-frame decode {tuple(out.shape)} is not "
                              "finite frames")
@@ -4172,7 +4138,6 @@ def options_aspect_ratio(records, card):
 
     import torch
     from ccvs_tpu_torch.config import bairhd_config
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, to_device
 
     base = bairhd_config()
@@ -4199,23 +4164,20 @@ def options_aspect_ratio(records, card):
         f"the latents of {OPTIONS_BATCH[0]} images of {hw[0]} x {hw[1]}: indices the plain "
         f"search's but {ties} near-ties (max distance gap {gap:.3g})")
     torch.cuda.reset_peak_memory_stats()
-    vq_indices.launches = 0
-    times = {}
+    profiling.reset()
+    spans = common.Spans(True)
     fake = None
     for kind in ("g", "d"):
-        e0, e1 = _events()
-        e0.record()
-        state, m, fake, _, _ = _ae_step(tr, state, kind, "img", img, fake)
-        e1.record()
-        torch.cuda.synchronize()
-        times[kind] = e0.elapsed_time(e1)
+        with spans.span(kind):
+            state, m, fake, _, _ = _ae_step(tr, state, kind, "img", img, fake)
         bad = [k for k, v in m.items() if not math.isfinite(float(v))]
         if bad:
             raise AssertionError(f"bairhd_aspect_2: image {kind.upper()} step non-finite {bad}")
-    if vq_indices.launches != 1:
-        raise AssertionError(f"bairhd_aspect_2: K1 launched {vq_indices.launches} times "
+    if kernel_launches("k1") != 1:
+        raise AssertionError(f"bairhd_aspect_2: K1 launched {kernel_launches('k1')} times "
                              "(expected 1)")
     records["vq_argmin"]["launches_by_rollout"]["bairhd_aspect_2 (1 image G step)"] = 1
+    times = {kind: t[0] for kind, t in spans.ms().items()}
     log(f"bairhd_aspect_2: the image G step {times['g']:.2f} ms, the image D step "
         f"{times['d']:.2f} ms (CUDA events, first calls); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; discriminator fc1 input "
@@ -5108,7 +5070,6 @@ def phase_parallel(records, card):
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from ccvs_tpu_torch.models import FrameAutoencoder
-    from ccvs_tpu_torch.ops.vq import vq_indices
     from ccvs_tpu_torch.parallel.fsdp import local_fraction
     from ccvs_tpu_torch.parallel.mesh import _free_port, init_distributed, make_mesh
     from ccvs_tpu_torch.train.ae_trainer import FrameAutoencoderTrainer, cycle_loader, to_device
@@ -5140,13 +5101,13 @@ def phase_parallel(records, card):
         torch.cuda.reset_peak_memory_stats()
         astate, *_ = atr.iteration(astate, 1, img, vid)
         secs = {}
-        vq_indices.launches = 0
+        profiling.reset()
         for it_n in (2, 16):  # 16: R1 (d_reg_every 16)
             t0 = time.perf_counter()
             astate, gm, dm, _ = atr.iteration(astate, it_n, img, vid)
             float(gm["g_loss"])
-            secs[it_n] = _synced_since(t0)
-        launches = vq_indices.launches
+            secs[it_n] = common.synced(CARD) - t0
+        launches = kernel_launches("k1")
         peak = torch.cuda.max_memory_allocated() / 2**30
         if launches != 4 or "r1_img" not in gm:
             raise AssertionError(f"parallel ae: K1 {launches} in 2 iterations (expected 4), "
@@ -5197,13 +5158,13 @@ def phase_parallel(records, card):
             if max(rel.values()) > 1e-3:
                 raise AssertionError(f"parallel {name}: first step {first} against the "
                                      f"unwrapped step's {ref}")
-            vq_indices.launches = 0
+            profiling.reset()
             t0 = time.perf_counter()
             for b in batches[1:]:
                 state, m = tr.step(state, tr.encode_batch(b))
                 nll = float(m["nll"])
-            dt = _synced_since(t0) / PHASE16_TIMED
-            launches = vq_indices.launches
+            dt = (common.synced(CARD) - t0) / PHASE16_TIMED
+            launches = kernel_launches("k1")
             peak = torch.cuda.max_memory_allocated() / 2**30
             if launches != PHASE16_TIMED:
                 raise AssertionError(f"parallel {name}: K1 launched {launches} times in "
@@ -5278,13 +5239,11 @@ def phase_parallel_utilities(tr, state, batches, work, card):
 
     tdir = os.path.join(work, "trace")
     with profiling.trace(tdir, "three_steps") as prof:
-        for i, b in enumerate(batches[1:4]):
-            with profiling.step_annotation("train", i):
-                state, m = tr.step(state, tr.encode_batch(b))
+        for b in batches[1:4]:
+            state, m = tr.step(state, tr.encode_batch(b))
     by_name, count = {}, {}
     for e in prof.events():
-        # the step annotations appear on the device's timeline too
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("train#"):
+        if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -5311,7 +5270,7 @@ def phase_parallel_utilities(tr, state, batches, work, card):
         t0 = time.perf_counter()
         s, m = tr.step(state, tr.encode_batch(b))
         float(m["nll"])
-        return s, _synced_since(t0)
+        return s, common.synced(CARD) - t0
 
     t0 = time.perf_counter()
     ckpt.save("transformer", 1, sd, latest=True)

@@ -18,6 +18,12 @@ from ccvs_tpu_torch.ops.int8_linear import Int8Linear, int8_linear_plain
 from ccvs_tpu_torch.ops.vq import vq_indices, vq_indices_plain
 from ccvs_tpu_torch.nn.quantizer import VectorQuantizer
 from ccvs_tpu_torch.train.steps import make_transformer_step
+from ccvs_tpu_torch.utils import profiling
+
+
+def launches(kernel):
+    """The tracer's count of ``kernel``'s launches (``k1``, ``k2``, ``k3``)."""
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -54,9 +60,9 @@ def test_vq_kernel_matches_plain(cuda, n, k, d):
     cb = torch.randn(k, d, device=cuda, generator=g)
     cb[k - 1] = cb[3]  # an exact tie: the smaller index wins
     z[0] = cb[3]
-    before = vq_indices.launches
+    before = launches("k1")
     idx = vq_indices(z, cb)
-    assert idx.is_cuda and vq_indices.launches == before + 1
+    assert idx.is_cuda and launches("k1") == before + 1
     ref = vq_indices_plain(z, cb)
     assert int(idx[0]) == 3
     diff = (idx != ref).nonzero().flatten()
@@ -143,9 +149,9 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, rel, tol):
     k = torch.randn(2, 16, 1024, 64, device=cuda, generator=g).to(dtype)
     v = torch.randn(2, 16, 1024, 64, device=cuda, generator=g).to(dtype)
     for pos in (0, 63, 64, 511, 1023):
-        before = flash_decode_attention.launches
+        before = launches("k2")
         out = flash_decode_attention(q, k, v, pos)
-        assert flash_decode_attention.launches == before + 1
+        assert launches("k2") == before + 1
         _check_against_plain(out, q, k, v, pos, rel, tol)
 
 
@@ -168,9 +174,9 @@ def test_flash_decode_kernel_device_pos(cuda, dtype, rel, tol, length):
     span = length // 8
     for i, pos in enumerate((0, 1, span - 1, span, length // 2 + 3, length - 1, length, length + 5)):
         p = torch.full((1,) if i % 2 else (), pos, dtype=torch.int32, device=cuda)
-        before = flash_decode_attention.launches
+        before = launches("k2")
         out = flash_decode_attention(q, k, v, p)
-        assert flash_decode_attention.launches == before + 1
+        assert launches("k2") == before + 1
         _check_against_plain(out, q, k, v, pos, rel, tol)
 
 
@@ -190,13 +196,13 @@ def test_flash_decode_cuda_graph_replay(cuda, dtype, rel, tol):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = flash_decode_attention(q, k, v, pos)
-    before = flash_decode_attention.launches
+    before = launches("k2")
     for p in (0, 63, 511, 1023):
         pos.fill_(p)
         graph.replay()
         torch.cuda.synchronize()
         _check_against_plain(out, q, k, v, p, rel, tol)
-    assert flash_decode_attention.launches == before  # replays do not pass the wrapper
+    assert launches("k2") == before  # replays do not pass the wrapper
 
 
 @pytest.mark.gpu
@@ -271,9 +277,9 @@ def test_continuous_generate_on_gpu_matches_cpu(cuda, proposals, normalize):
     with torch.no_grad():  # non-zero positional embeddings
         ct.model.pos_emb.normal_(0.0, 0.02, generator=torch.Generator(device=cuda).manual_seed(4))
     code = torch.randn(2, 9, 16, generator=torch.Generator().manual_seed(5))
-    before = flash_decode_attention.launches
+    before = launches("k2")
     got = ct.generate(code.to(cuda), 40, normalize_pred=normalize)
-    assert flash_decode_attention.launches - before == 2 * (40 - 9 - 1)
+    assert launches("k2") - before == 2 * (40 - 9 - 1)
     cpu = ContinuousTransformer(cfg, dtype=torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in ct.state_dict().items()})
     want = cpu.generate(code, 40, normalize_pred=normalize)
@@ -311,12 +317,12 @@ def test_layout_generate_on_gpu_matches_cpu(cuda):
         else:  # the CPU's weights
             ae.load_state_dict(outs["cpu"][1])
             tr.load_state_dict(outs["cpu"][2])
-        k1, k2 = vq_indices.launches, flash_decode_attention.launches
+        k1, k2 = launches("k1"), launches("k2")
         out = VideoGenerator(cfg, ae, tr).generate(
             vid.to(dev), torch.Generator(device=dev).manual_seed(0), rec=False,
             layout=lay.to(dev))
         outs[dev] = (out, ae.state_dict(), tr.state_dict(),
-                     (vq_indices.launches - k1, flash_decode_attention.launches - k2))
+                     (launches("k1") - k1, launches("k2") - k2))
     got, want = outs["cuda"][0], outs["cpu"][0]
     assert outs["cuda"][3] == (4, 2 * 2 * 32)
     for k in ("code", "state_code", "fake_layout"):
@@ -378,9 +384,9 @@ def test_int8_linear_kernel_matches_plain(cuda, rows, inner, out, dtype, with_bi
     bias = torch.randn(out, generator=g).to(dtype) if with_bias else None
     want = int8_linear_plain(x, w8, scale, bias)
     lin = Int8Linear([w8.to(cuda)], [scale.to(cuda)], [None if bias is None else bias.to(cuda)])
-    before = Int8Linear.launches
+    before = launches("k3")
     got = lin(x.to(cuda))
-    assert Int8Linear.launches - before == -(-rows // 16)
+    assert launches("k3") - before == -(-rows // 16)
     assert got.is_cuda and got.dtype == torch.float32 and got.shape == (rows, out)
     assert torch.equal(got.cpu(), want)
 
@@ -404,9 +410,9 @@ def test_int8_qkv_kernel_matches_three_plain_products(cuda, rows, inner, dtype):
     biases = [torch.randn(1024, generator=g).to(dtype) for _ in range(3)]
     qkv = Int8Linear([w.to(cuda) for w in w8s], [s.to(cuda) for s in scales],
                      [b.to(cuda) for b in biases])
-    before = Int8Linear.launches
+    before = launches("k3")
     got = qkv(x.to(cuda))
-    assert Int8Linear.launches - before == 1
+    assert launches("k3") - before == 1
     assert got.is_cuda and got.shape == (3, rows, 1024)
     for i in range(3):
         assert torch.equal(got[i].cpu(), int8_linear_plain(x, w8s[i], scales[i], biases[i]))
@@ -445,10 +451,9 @@ def test_serve_int8_at_batch_16_launches_once_a_product(cuda):
         tr = TokenTransformer(cfg, dtype=torch.float32, device=dev).init(seed=1)
         if dev == "cpu":
             tr.load_state_dict(outs["cuda"][1])
-        Int8Linear.launches = flash_decode_attention.launches = 0
+        profiling.reset()
         out = tr.generate(code.to(dev), torch.Generator(device=dev).manual_seed(0), total_len=48)
-        outs[dev] = (out, tr.state_dict(), Int8Linear.launches,
-                     flash_decode_attention.launches)
+        outs[dev] = (out, tr.state_dict(), launches("k3"), launches("k2"))
     steps = outs["cuda"][3] // cfg.n_layer
     assert steps == 32 and outs["cuda"][2] == (4 * cfg.n_layer + 1) * steps
     assert outs["cpu"][2:] == (0, 0)
@@ -470,10 +475,10 @@ def test_vq_gradient_contract_on_card(cuda):
         with torch.no_grad():
             q.embedding.copy_(cb)
         zz = z.clone().to(dev).requires_grad_(True)
-        before = vq_indices.launches
+        before = launches("k1")
         z_q, loss, (_, idx) = q(zz)
         ((w.to(dev) * z_q).sum() + loss).backward()
-        assert vq_indices.launches == before + (dev != "cpu")
+        assert launches("k1") == before + (dev != "cpu")
         grads[str(dev)] = idx.cpu(), zz.grad.cpu(), q.embedding.grad.cpu()
     for a, b in zip(grads["cpu"], grads["cuda"]):
         assert torch.allclose(a.double(), b.double(), rtol=1e-6, atol=1e-9)
@@ -498,10 +503,10 @@ def test_vq_codebook_gradient_at_ae_training_shapes(cuda, n):
         q = VectorQuantizer(1024, 512).to(dev)
         with torch.no_grad():
             q.embedding.copy_(cb)
-        before = vq_indices.launches
+        before = launches("k1")
         z_q, loss, (_, idx) = q(z.to(dev).requires_grad_(True))
         ((w.to(dev) * z_q).sum() + loss).backward()
-        assert vq_indices.launches == before + (dev != "cpu")
+        assert launches("k1") == before + (dev != "cpu")
         out[str(dev)] = idx.cpu(), q.embedding.grad.cpu()
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     want = out["cpu"][1]

@@ -1,8 +1,9 @@
 """The port's utilities against ccvs_tpu's, on the CPU: the media half of
 ``utils/logging.py`` (through a ``tensorboardX`` stand-in), the asynchronous
 ``CheckpointManager`` (the cases of ``tests/test_checkpoint_async.py``),
-``utils/profiling.py``, the weight exporters (``port/export_*.py``) on
-synthetic state dicts with the sources' key names, and ``Config.async_ckpt``."""
+the weight exporters (``port/export_*.py``) on synthetic state dicts with
+the sources' key names, and ``Config.async_ckpt``. The tracer of
+``utils/profiling.py`` has its own file, ``tests/test_torch_tracing.py``."""
 
 import json
 import os
@@ -15,7 +16,6 @@ import torch
 
 from ccvs_tpu.utils import logging as jlog
 from ccvs_tpu_torch.utils import logging as tlog
-from ccvs_tpu_torch.utils import profiling
 from ccvs_tpu_torch.utils.checkpoint import CheckpointManager
 from torch_parity import few_threads  # noqa: F401
 
@@ -149,32 +149,6 @@ def test_ae_trainer_logs_images_and_profiles_a_window(tmp_path, tensorboard_stub
     assert traces == ["ae_iters_10_10.json"]
     trace = json.load(open(tmp_path / "prof" / traces[0]))
     assert trace["traceEvents"]
-
-
-# ---------------------------------------------------------------- profiling
-
-
-def test_trace_writes_a_chrome_trace_with_step_regions(tmp_path):
-    with profiling.trace(str(tmp_path), "steps") as prof:
-        for step in range(2):
-            with profiling.step_annotation("train", step):
-                torch.ones(8).sum()
-    names = {e.key for e in prof.key_averages()}
-    assert {"train#0", "train#1"} <= names
-    events = json.load(open(tmp_path / "steps.json"))["traceEvents"]
-    assert any(e.get("name") == "train#1" for e in events)
-    with profiling.trace(None) as none:
-        assert none is None
-
-
-def test_timer_reports_every_sync_every_ticks():
-    t = profiling.Timer(sync_every=3)
-    assert t.tick() is None and t.tick(torch.ones(2)) is None
-    rate = t.tick({"loss": torch.ones(())})
-    assert rate is not None and rate > 0
-    assert t.tick() is None
-    profiling.device_sync(torch.nn.Linear(2, 2))
-    profiling.device_sync()
 
 
 # ---------------------------------------------------------------- checkpoints
