@@ -9,7 +9,10 @@ The JAX package scans its per-token decode step as one compiled program
 (``_fill_jit``, ``_fill_beam_jit``, ``_chunk_fill_jit``); here it is a Python
 loop whose tensors stay on the device: nothing in the loop waits for the GPU.
 The schedule (each position's kind, spatial and temporal index, and whether
-its token is given) is static numpy, so the loop reads it on the host.
+its token is given) is static numpy, so the loop reads it on the host. On
+CUDA the loop's decode step (the blocks, the final LayerNorm and the head) is
+one replay of a CUDA graph (:class:`DecodeGraph`) where it would be ~26
+launches a layer; the sampler and the token's embedding stay eager.
 """
 
 from functools import partial
@@ -107,6 +110,56 @@ def _ce(logits, targets):
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 
 
+class DecodeGraph:
+    """The cached decode step ``step_fn(model, emb1, pos, cache)`` of ``b``
+    rows, then ``pos += 1``, captured as one CUDA graph over static buffers:
+    the input embedding ``emb`` ``(B, 1, D)``, the position ``pos`` (int32
+    ``(1,)``), the stacked cache ``cache`` of ``length`` positions (rounded up
+    to 128 as ``init_cache`` rounds) and the logits ``logits`` ``(B, V)``.
+    The graph holds the parameters' (and ``step_fn``'s int8 weights')
+    addresses, so it serves while they stay where they are; ``key`` says
+    what it was made for. The launches counted while it was captured are
+    counted again at each replay."""
+
+    @torch.no_grad()
+    def __init__(self, model, step_fn, b, length, key=None):
+        cfg, dev = model.cfg, model.head.weight.device
+        self.key = key
+        self.cache = model.init_cache(b, length)
+        self.emb = torch.zeros(b, 1, cfg.n_embd, dtype=model.dtype, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int32, device=dev)
+        layers = cache_to_layers(self.cache)
+        # warm up on a side stream (lazy set-up stays out of the capture);
+        # its writes at position 0 are overwritten by the next prefill
+        side, main = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with profiling.counts_apart(), torch.cuda.stream(side):
+            step_fn(model, emb1=self.emb, pos=self.pos, cache=layers)
+        main.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with profiling.counts_apart() as self.counts, torch.cuda.graph(self.graph):
+            self.logits = step_fn(model, emb1=self.emb, pos=self.pos, cache=layers)
+            self.pos += 1
+        profiling.count("tokens.graph_captures")
+
+    def cache_view(self, n):
+        """The stacked cache's first ``n`` positions (rounded up to 128) as a
+        prefill of ``n`` positions writes them."""
+        n = -(-n // 128) * 128
+        return tuple(c[:, :, :, :n] for c in self.cache)
+
+    def replay(self, emb1):
+        """One decode step of ``emb1`` ``(B, 1, D)`` at ``pos``: the logits
+        (the static buffer, overwritten by the next replay)."""
+        self.emb.copy_(emb1)
+        with profiling.span("tokens.graph"):
+            self.graph.replay()
+        for name, n in self.counts.items():
+            profiling.count(name, n)
+        profiling.count("tokens.graph_replays")
+        return self.logits
+
+
 class TokenTransformer(nn.Module):
     """The GPT in compute ``dtype`` with parameters in ``param_dtype``
     (default ``dtype``). It starts in eval mode: dropout and residual noise
@@ -121,6 +174,8 @@ class TokenTransformer(nn.Module):
         # this rank's block of the global batch, and every random draw is made
         # at the global batch's rows (what one process draws on it)
         self.data_axis = None
+        self._int8 = None  # (the parameters' addresses and versions, the int8 step)
+        self._graph = None  # the DecodeGraph last used
         self.eval()
 
     @property
@@ -174,7 +229,7 @@ class TokenTransformer(nn.Module):
         ``lbl`` ``(B,)`` the class labels of the class-conditional mode. With
         ``cfg.beam_size > 1`` each window is filled by beam search. With
         ``cfg.serve_int8`` the decode step runs on int8 weights, quantized
-        once here.
+        once while the parameters stay unchanged.
 
         Returns ``{"code": (B, n_frame_tokens), "state_code": (B,
         n_state_tokens) or None}``."""
@@ -237,18 +292,46 @@ class TokenTransformer(nn.Module):
         sched = self._sched_for(length)
         kind, s_idx, t_idx = sched.kind[:length], sched.s_idx[:length], sched.t_idx[:length]
         merged = merged.long().clone()
-        logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, n)
-        self._decode(generator, self._step_fn(), merged, np.zeros(length, bool),
+        step_fn = self._step_fn()
+        graph = self._graph_for(step_fn, merged.shape[0], length)
+        logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, n, graph=graph)
+        self._decode(generator, step_fn, merged, np.zeros(length, bool),
                      range(n, n + cfg.z_chunk), kind, s_idx, t_idx, logits,
-                     cache_to_layers(cache), pos)
+                     cache_to_layers(cache), pos, graph)
         return merged
 
     def _step_fn(self):
         """The cached decode step: bf16 / fp32, or with ``cfg.serve_int8``
-        the int8 one on weights quantized now."""
-        if self.cfg.serve_int8:
-            return partial(decode_step_fn_int8, qparams=quantize_gpt_int8(self.model))
-        return decode_step_fn
+        the int8 one, on weights quantized again only when a parameter has
+        moved or changed since the last quantization."""
+        if not self.cfg.serve_int8:
+            return decode_step_fn
+        key = tuple((p.data_ptr(), p._version) for p in self.model.parameters())
+        if self._int8 is None or self._int8[0] != key:
+            self._int8 = None  # the old weights go before the new are made
+            self._int8 = (key, partial(decode_step_fn_int8,
+                                       qparams=quantize_gpt_int8(self.model)))
+        return self._int8[1]
+
+    def _graph_for(self, step_fn, b, window):
+        """The :class:`DecodeGraph` of ``step_fn`` at ``b`` rows whose cache
+        holds a window of ``window`` positions (the prefix and the longest
+        body), captured now where the one kept does not fit; None where the
+        step runs eagerly: off CUDA, in training mode (dropout draws), and
+        where a capture would fall while a ``torch.profiler`` session
+        records."""
+        model = self.model
+        if self.device.type != "cuda" or model.training:
+            return None
+        key = (step_fn, b, -(-window // 128) * 128,
+               tuple(p.data_ptr() for p in model.parameters()))
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        if profiling.profiler_recording():
+            return None
+        self._graph = None  # the old graph and cache go before the new are made
+        self._graph = DecodeGraph(model, step_fn, b, window, key)
+        return self._graph
 
     def _sched_for(self, merged_len):
         """Schedule of enough frames for ``merged_len`` body tokens."""
@@ -292,29 +375,38 @@ class TokenTransformer(nn.Module):
                                           kind, s_idx, t_idx, cond_code, delta, lbl)
             merged = hyps[torch.arange(b, device=dev), log_p.argmax(1)]
         else:
+            n_cond = 0 if cond_code is None else cond_code.shape[1]
+            graph = self._graph_for(step_fn, b, self.model.prefix_len(cond_code, lbl)
+                                    + self.cfg.z_len - n_cond)
             logits, cache, pos = self._prefill(merged, kind, s_idx, t_idx, start, cond_code,
-                                               delta, lbl)
+                                               delta, lbl, graph)
             self._decode(generator, step_fn, merged, given, range(start, length), kind, s_idx,
-                         t_idx, logits, cache_to_layers(cache), pos)
+                         t_idx, logits, cache_to_layers(cache), pos, graph)
         out_state = None if state_code is None else merged[:, torch.as_tensor(spos, device=dev)]
         return merged[:, torch.as_tensor(fpos, device=dev)], out_state
 
-    def _prefill(self, merged, kind, s_idx, t_idx, start, cond_code=None, delta=None, lbl=None):
+    def _prefill(self, merged, kind, s_idx, t_idx, start, cond_code=None, delta=None, lbl=None,
+                 graph=None):
         """Run the prefix and the body ``merged`` ``(B, L)`` once through a new
-        cache; placeholders from ``start`` on are causally invisible to the
+        cache (the first positions of ``graph``'s, where there is a graph);
+        placeholders from ``start`` on are causally invisible to the
         positions before them. Returns the logits that predict ``body[start]``,
         the stacked cache and ``body[start]``'s absolute position, an int32
-        tensor of shape ``(1,)`` on the device."""
+        tensor of shape ``(1,)`` on the device (``graph``'s)."""
         model = self.model
         b = merged.shape[0]
         prefix_len = model.prefix_len(cond_code, lbl)
-        cache = model.init_cache(b, prefix_len + merged.shape[1])
+        n = prefix_len + merged.shape[1]
+        cache = model.init_cache(b, n) if graph is None else graph.cache_view(n)
         emb = model.embed_one(merged, s_idx, t_idx, kind)
         prefix = model._prefix_emb(b, cond_code, delta, lbl)
         if prefix is not None:
             emb = torch.cat([prefix, emb], dim=1)
         logits_all, cache = model.prefill(emb, cache)
-        pos = torch.full((1,), prefix_len + start, dtype=torch.int32, device=merged.device)
+        if graph is None:
+            pos = torch.full((1,), prefix_len + start, dtype=torch.int32, device=merged.device)
+        else:
+            pos = graph.pos.fill_(prefix_len + start)
         # logits at prefix_len + start - 1 predict body[start] (behind a start
         # token and no context, the start token's); with no prefix and nothing
         # given before body[0], index -1 reads the last position, as the JAX
@@ -322,11 +414,12 @@ class TokenTransformer(nn.Module):
         return logits_all[:, prefix_len + start - 1], cache, pos
 
     def _decode(self, generator, step_fn, merged, given, positions, kind, s_idx, t_idx, logits,
-                cache, pos):
+                cache, pos, graph=None):
         """One cached decode step per position of ``positions``, from the
         logits and per-layer cache of :meth:`_prefill`: the position's token
-        (given, or sampled into ``merged`` in place) goes through the step,
-        and ``pos`` advances on the device."""
+        (given, or sampled into ``merged`` in place) goes through the step
+        (a replay of ``graph``, where there is one), and ``pos`` advances on
+        the device."""
         model = self.model
         for j in positions:
             with profiling.span("tokens.step"):
@@ -338,8 +431,11 @@ class TokenTransformer(nn.Module):
                                             self.data_axis)
                     merged[:, j] = tok
                 emb1 = model.embed_one(tok, int(s_idx[j]), int(t_idx[j]), int(kind[j]))[:, None]
-                logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
-                pos += 1
+                if graph is not None:
+                    logits = graph.replay(emb1)
+                else:
+                    logits = step_fn(model, emb1=emb1, pos=pos, cache=cache)
+                    pos += 1
 
     def _fill_beam(self, generator, step_fn, merged, given, start, beam_start, kind, s_idx, t_idx,
                    cond_code, delta, lbl):

@@ -25,7 +25,8 @@ metric of the benchmark (``ccvs_bench/spans.py``):
 - ``tokens``: ``TokenTransformer.generate``, ``generate_chunk_fixed``,
   ``ContinuousTransformer.generate``; ``tokens.step`` (``tokens``), each
   pass of a decode loop; ``tokens.sample`` (``tokens.step``), the choice of
-  a position's tokens;
+  a position's tokens; ``tokens.graph`` (``tokens.step``), a replay of the
+  decode step's CUDA graph;
 - ``decode``: ``FrameAutoencoder.decode_video``, ``decode_video_layout``
   (and each frame of ``generate_step_by_step``);
 - ``train.encode`` (a root): ``TransformerTrainer.encode_batch``;
@@ -34,7 +35,10 @@ metric of the benchmark (``ccvs_bench/spans.py``):
 
 The hand-written kernels count their launches: ``k1.launches`` (K1,
 ``ops/vq.py``), ``k2.launches`` (K2, ``ops/attention.py``) and
-``k3.launches`` (K3, ``ops/int8_linear.py``).
+``k3.launches`` (K3, ``ops/int8_linear.py``); a replay of the decode
+step's CUDA graph counts the launches it holds, and
+``tokens.graph_captures`` and ``tokens.graph_replays`` count the graphs
+captured and replayed (``models/transformer.py``).
 
 The reference has no profiler integration (unprinted ``time.time()`` probes
 only). A trace written by :func:`trace` is a Chrome trace
@@ -124,13 +128,19 @@ def span(name):
     return _Span(name)
 
 
+def profiler_recording():
+    """Whether a ``torch.profiler`` session records now (read from a
+    private flag of torch's: False where torch has none)."""
+    return bool(getattr(_autograd_profiler, "_is_profiler_enabled", False))
+
+
 def root(name):
     """:func:`span` for the outermost span of one rollout or one training
     step; opened while a ``torch.profiler`` session records, it turns the
     tracer on until it closes."""
     if _on:
         return _Span(name)
-    if getattr(_autograd_profiler, "_is_profiler_enabled", False):
+    if profiler_recording():
         return _ProfiledRoot(name)
     return _OFF
 
@@ -154,6 +164,20 @@ def spanned(name, is_root=False):
 def count(name, n=1):
     """Add ``n`` (a host int) to counter ``name``."""
     _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def counts_apart():
+    """Keep the counts of the block out of the counters: yields a dict
+    that holds them once the block has ended."""
+    global _counters
+    outer, _counters = _counters, {}
+    apart = {}
+    try:
+        yield apart
+    finally:
+        apart.update(_counters)
+        _counters = outer
 
 
 def enable():

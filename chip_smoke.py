@@ -979,6 +979,47 @@ def decode_ops_per_layer(tr, code):
     return Count.n
 
 
+def decode_step_ms(tr, steps=200):
+    """Host ms a full-width decode step at batch 2 and 16 over the window's
+    cache from position 512, eager and replayed from the step's CUDA graph
+    (``DecodeGraph``, as the rollout replays it): ``steps`` steps after 20
+    of warm-up, one synchronize at the end; K2 counted 24 a step in both."""
+    import torch
+
+    from ccvs_tpu_torch.models.transformer import DecodeGraph
+    from ccvs_tpu_torch.nn.gpt import cache_to_layers, decode_step_fn
+
+    model, n_layer = tr.model, tr.cfg.n_layer
+    with torch.no_grad():
+        for b in (2, 16):
+            graph = DecodeGraph(model, decode_step_fn, b, tr.cfg.z_len)
+            layers = cache_to_layers(graph.cache)
+            emb = torch.randn(b, 1, tr.cfg.n_embd, device="cuda").to(model.dtype)
+            pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+            def eager():
+                decode_step_fn(model, emb, pos, layers)
+                pos.add_(1)
+
+            ms = {}
+            for name, step in (("eager", eager), ("graphed", lambda: graph.replay(emb))):
+                for n in (20, steps):
+                    pos.fill_(512)
+                    graph.pos.fill_(512)
+                    profiling.reset()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        step()
+                    ms[name] = 1e3 * (common.synced(CARD) - t0) / n
+                    if kernel_launches("k2") != n_layer * n:
+                        raise AssertionError(f"{name} decode step: K2 {kernel_launches('k2')} "
+                                             f"launches in {n} steps of {n_layer} layers")
+            log(f"decode step at batch {b} from position 512 ({steps} steps): eager "
+                f"{ms['eager']:.3f} ms, graphed {ms['graphed']:.3f} ms "
+                f"({ms['eager'] / ms['graphed']:.2f}x)")
+            del graph
+
+
 def phase_rollout(records, card, cfg, n_ctx, vid_len=VID_LEN, k1=2, k2_steps=None):
     """Warm-up with its stages timed, then one timed ``generate`` with every
     kernel's launch count read around it (default K2 steps: the tokens past
@@ -5379,6 +5420,7 @@ def main():
         models = phase_rollout(records, card, bairhd_config(), n_ctx=1)
         log(f"decode step: {decode_ops_per_layer(models[1], models[3])} PyTorch operations a "
             "layer on the card (bf16 parameters, compute and cache)")
+        decode_step_ms(models[1])
     with phase("4 kinetics"):
         # 24 frames, 5 context frames (cond_len 320 / 64 tokens a frame): 960
         # decode steps fill the 1280-token window, then it slides 4 chunks of 64

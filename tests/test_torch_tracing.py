@@ -4,8 +4,9 @@ nothing; spans nest with their parent and root; a root opened under
 profiler alone keeps are bounded; the spans and counters
 of a small BAIR-shaped rollout, of beam search, of the continuous rollout,
 of step-by-step generation and of a transformer training step; the
-kernels' launch counters on a card (marker ``gpu``); and ``trace()``'s
-Chrome trace.
+kernels' launch counters on a card (marker ``gpu``); the decode step's CUDA
+graph on a card (and its absence on the CPU); and ``trace()``'s Chrome
+trace.
 
 This file imports neither JAX nor ccvs_tpu."""
 
@@ -21,6 +22,8 @@ from torch.profiler import ProfilerActivity, profile
 from ccvs_tpu_torch.config import AutoencoderConfig, Config, TransformerConfig
 from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import ContinuousTransformer, FrameAutoencoder, TokenTransformer
+from ccvs_tpu_torch.models.transformer import DecodeGraph
+from ccvs_tpu_torch.nn.gpt import cache_to_layers
 from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 from ccvs_tpu_torch.utils import profiling
 
@@ -255,6 +258,87 @@ def test_kernel_launch_counters_on_card():
     counts = profiling.counters()
     assert counts["k2.launches"] == cfg.gpt.n_layer * _by_name(profiling.spans())["tokens.step"]
     assert counts["k1.launches"] == 2 and "k3.launches" not in counts
+
+
+@pytest.mark.parametrize("mode", ["generate", "chunk_fixed", "int8"])
+def test_the_cpu_decodes_eagerly(mode):
+    """On the CPU every decode step runs eagerly: no ``tokens.graph`` span,
+    no ``tokens.graph_*`` counter, no graph kept."""
+    gcfg = dataclasses.replace(CFG.gpt, serve_int8=mode == "int8")
+    tr = TokenTransformer(gcfg, dtype=torch.float32, device="cpu").init(seed=1)
+    code = torch.randint(0, 64, (B, 64), generator=torch.Generator().manual_seed(2))
+    profiling.enable()
+    if mode == "chunk_fixed":
+        tr.generate_chunk_fixed(code, SIZE, torch.Generator().manual_seed(0))
+    else:
+        tr.generate(code[:, :SIZE], torch.Generator().manual_seed(0), total_len=2 * SIZE)
+    names = _by_name(profiling.spans())
+    assert names["tokens.step"] == SIZE and "tokens.graph" not in names
+    assert not any(k.startswith("tokens.graph") for k in profiling.counters())
+    assert tr._graph is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, dtype, int8", [(2, torch.float32, False),
+                                            (16, torch.bfloat16, False),
+                                            (2, torch.float32, True)])
+def test_the_decode_graph_on_card(b, dtype, int8, monkeypatch):
+    """The decode step's CUDA graph at ``b`` rows: two seeded 2-frame
+    rollouts capture it once and replay it in every decode step, K2 (and
+    K3) counted as eagerly; a third rollout reuses its cache; the eager
+    path gives the same tokens; and the graph's logits over 8 consecutive
+    positions are bit-equal to the eager step's from the same cache. The
+    window (256) is longer than the fill, whose prefill writes a strided
+    view of the graph's cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gcfg = dataclasses.replace(CFG.gpt, n_embd=128, z_len=256, num_blocks=16,
+                               serve_int8=int8)  # K2's hd 64
+    tr = TokenTransformer(gcfg, dtype=dtype, device="cuda").init(seed=1)
+    code = torch.randint(0, 64, (b, SIZE), generator=torch.Generator().manual_seed(2)).cuda()
+
+    def rollout():
+        return tr.generate(code, torch.Generator("cuda").manual_seed(0),
+                           total_len=2 * SIZE)["code"]
+
+    profiling.enable()
+    first, second = rollout(), rollout()
+    spans, counts = profiling.spans(), profiling.counters()
+    steps = _by_name(spans)["tokens.step"]
+    assert steps == 2 * SIZE and _by_name(spans)["tokens.graph"] == steps
+    assert _parents(spans)["tokens.graph"] == {"tokens.step"}
+    assert counts["tokens.graph_captures"] == 1 and counts["tokens.graph_replays"] == steps
+    assert counts["k2.launches"] == gcfg.n_layer * steps
+    graph = tr._graph
+    k3 = graph.counts.get("k3.launches", 0)
+    print(f"b {b}, {dtype}, int8 {int8}: one replay counts {graph.counts}")
+    assert counts.get("k3.launches", 0) == k3 * steps == (
+        (4 * gcfg.n_layer + 1) * steps if int8 else 0)
+    assert torch.equal(first, second)
+    cache_at = graph.cache[0].data_ptr()
+    rollout()
+    assert tr._graph is graph and graph.cache[0].data_ptr() == cache_at
+    assert profiling.counters()["tokens.graph_captures"] == 1
+    with monkeypatch.context() as m:
+        m.setattr(TokenTransformer, "_graph_for", lambda self, *a: None)
+        assert torch.equal(rollout(), first)
+
+    step_fn = tr._step_fn()
+    g = DecodeGraph(tr.model, step_fn, b, 128)
+    gen = torch.Generator("cuda").manual_seed(3)
+    for c in g.cache:
+        c.copy_(torch.randn(c.shape, generator=gen, device="cuda"))
+    eager = tuple(c.clone() for c in g.cache)
+    pos = torch.full((1,), 37, dtype=torch.int32, device="cuda")
+    g.pos.fill_(37)
+    for _ in range(8):
+        emb1 = torch.randn(b, 1, gcfg.n_embd, generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            want = step_fn(tr.model, emb1=emb1, pos=pos, cache=cache_to_layers(eager))
+        pos += 1
+        assert torch.equal(g.replay(emb1), want)
+    assert torch.equal(g.pos, pos)
+    assert all(torch.equal(x, y) for x, y in zip(g.cache, eager))
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
