@@ -24,9 +24,11 @@ from ccvs_tpu_torch import config as tcfg
 from ccvs_tpu_torch.config import Config
 from ccvs_tpu_torch.generate import VideoGenerator
 from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
-from torch_parity import AE, GPT, REPO, fast_jit, jax_params, load_into, port_config, set_fp32, to_np
+from torch_parity import (AE, GPT, REPO, fast_jit, few_threads, jax_params, load_into,  # noqa: F401
+                          port_config, set_fp32, to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 T = 3  # frames: 3 x 16 tokens fill the 48-token window, as 16 x 64 fill 1024 at full size
 
 

@@ -16,9 +16,11 @@ from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
 from ccvs_tpu_torch.nn import layers as tl
 from ccvs_tpu_torch.nn.gpt import cache_to_layers, decode_step_fn
 from ccvs_tpu_torch.weights import load_npz, load_params
-from torch_parity import AE, GPT, jax_params, load_into, port_config, set_fp32, to_np
+from torch_parity import (AE, GPT, few_threads, jax_params, load_into, port_config,  # noqa: F401
+                          set_fp32, to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 def _layer_pair(jmod, tmod, x, *args, **kwargs):

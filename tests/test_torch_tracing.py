@@ -26,6 +26,7 @@ from ccvs_tpu_torch.models.transformer import DecodeGraph
 from ccvs_tpu_torch.nn.gpt import cache_to_layers
 from ccvs_tpu_torch.train.transformer_trainer import TransformerTrainer
 from ccvs_tpu_torch.utils import profiling
+from torch_threads import few_threads  # noqa: F401
 
 # BAIR's shape at a test's size: one context frame, 16 tokens a frame, 4 frames
 CFG = Config(
@@ -35,6 +36,7 @@ CFG = Config(
                           n_embd=32, z_shape=(4, 4), z_chunk=16, top_k=8),
     n_iter=10)
 B, T, SIZE = 2, 4, 16
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 
 @pytest.fixture(autouse=True)

@@ -15,9 +15,11 @@ from ccvs_tpu.models import TokenTransformer as JTT
 from ccvs_tpu.port.npz_params import unflatten_params
 from ccvs_tpu_torch.models import FrameAutoencoder, TokenTransformer
 from ccvs_tpu_torch.weights import load_npz
-from torch_parity import kinetics_trained, port_config, set_fp32, smooth_clip, to_np
+from torch_parity import (few_threads, kinetics_trained, port_config, set_fp32,  # noqa: F401
+                          smooth_clip, to_np)
 
 F32 = set_fp32()
+pytestmark = pytest.mark.usefixtures("few_threads")
 T, N_CTX = 7, 2  # skip_memory 4: the FIFO is full from frame 4
 
 

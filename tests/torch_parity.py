@@ -14,6 +14,7 @@ from ccvs_tpu import config as jcfg
 from ccvs_tpu.port.npz_params import flatten_params
 from ccvs_tpu_torch import config as tcfg
 from ccvs_tpu_torch.weights import load_params
+from torch_threads import few_threads  # noqa: F401  (re-exported to the parity tests)
 
 # four resolutions: the finest runs the stride-2 correlation, the two coarsest
 # the 1x1 projection before it (feature width > 16)
@@ -126,17 +127,3 @@ def fast_jit(fn):
         return compiled[0](*args)
 
     return call
-
-
-@pytest.fixture(scope="module")
-def few_threads():
-    """Two intra-op threads for a module's PyTorch work, then the previous
-    count: the tier-1 run puts six test processes on the CPU's cores, and a
-    process's default of one OpenMP thread a core oversubscribes them, which
-    slows the many small operations of a small model's backward pass
-    several times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
